@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (nothing is caught):
+
+1. environment: torch and CUDA versions, the card's name and power limit;
+2. build: ``nvcc`` compiles every kernel of ``src/repro_torch/kernels/csrc``
+   (one process per source, in parallel);
+3. kernels against their plain PyTorch versions on the card:
+   ``kron_segsum`` on the first 8M elements of the main-path tensor sorted
+   by each mode's rows (f32 and bf16), an empty input, a 4-mode K̂ = 1000
+   case and a hub case with 30% of the elements in one row;
+   ``oracle_pair`` on the main path's Z with s = 1 and s = 8, both halves
+   and each half alone (as the Lanczos loop calls it); each also rerun and
+   required bitwise equal;
+4. the main path: ``repro_torch.core.hooi.hooi`` on the nell-2-sized
+   tensor ``synth_tensor((12092, 9184, 28818), 76_879_419,
+   alphas=(0.9, 0.9, 1.0), seed=0)``, core (10, 10, 10), 3 invocations,
+   ``use_fused_oracle=True``, with both kernels' launch counts read around
+   it; then the low-rank recipe (fit > 0.99) and a small tensor on the card
+   against the port's plain CPU path;
+5. where a sweep's time goes: ``torch.profiler`` over one more invocation
+   of the main path, device time by kernel and the device's busy share;
+6. timings at the main path's shapes, against each kernel's bound; for
+   ``oracle_pair`` the main path's calls, one half at a time.
+
+Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
+limit line, and as the last line ``{"ok": true, "device": {...}}``. Without
+CUDA it exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+MAIN_SHAPE = (12092, 9184, 28818)  # FROSTT nell-2
+MAIN_NNZ = 76_879_419  # nell-2's nonzeros, drawn before deduplication
+MAIN_ALPHAS = (0.9, 0.9, 1.0)  # the repo's nell2-s spec
+CORE = (10, 10, 10)  # the paper's default core
+INVOCATIONS = 3
+CHECK_ELEMENTS = 8_000_000  # main-path elements in the kron_segsum checks
+FOUR_MODE = ((200, 300, 400, 500), 2_000_000)  # K̂ = 1000 at K = 10
+HUB = (4_000_000, 50_000, 0.3)  # elements, rows, share in one row
+DEVICE = "cuda"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+
+# |kernel - plain| <= TOL * max|plain|: both sum in f32 but in another order
+# (chunked sequential sums and fixed-order partials against index_add_'s
+# atomics and cuBLAS's reductions); rows of up to ~10^6 terms keep the
+# relative rounding near 1e-5
+TOL = 2e-4
+# the run must end within 1200 s; past this point the main path is cut to
+# one invocation (never the shape)
+CUT_INVOCATIONS_AFTER_S = 600.0
+
+T_START = time.perf_counter()
+
+
+def log(msg: str) -> None:
+    print(f"[{time.perf_counter() - T_START:7.1f}s] {msg}", flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn()`` in ms, by CUDA events over ``reps``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|)."""
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    return err, err / max(scale, 1e-30)
+
+
+def check(name: str, got, want, again) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    bitwise = torch.equal(got, again)
+    log(f"  {name}: max_abs_err={err:.3e} rel={rel:.3e} "
+        f"rerun_bitwise={bitwise}")
+    if not rel <= TOL:
+        raise AssertionError(f"{name}: relative error {rel:.3e} > {TOL}")
+    if not bitwise:
+        raise AssertionError(f"{name}: rerun not bitwise equal")
+    return err
+
+
+def kron_bound_ms(E: int, Ka: int, Kb: int, num_rows: int) -> tuple[float, str]:
+    bytes_ = E * 4 * (1 + Ka + Kb) + num_rows * Ka * Kb * 4
+    flops = 2 * E * Ka * Kb
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def oracle_half_bound_ms(R: int, K: int, s: int) -> tuple[float, str]:
+    """One product, Z @ x or Zᵀ @ y: Z read once, (K + R) * s in and out."""
+    bytes_ = 4 * (R * K + K * s + R * s)
+    flops = 2 * R * K * s
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def sorted_split(coords, values, factors, mode):
+    """The kernel's inputs for one mode: elements sorted by row, (a, b)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    order = torch.argsort(coords[:, mode], stable=True)
+    c = coords[order]
+    a, b = ops._split_ab(c, values[order], factors, mode)
+    return c[:, mode].contiguous(), a, b
+
+
+def phase_kernel_checks(coords, values, factors, shape) -> dict:
+    import torch
+    from repro_torch.core import hooi
+    from repro_torch.data.tensors import synth_tensor
+    from repro_torch.convert import device_coords
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.kron_segsum import kron_segsum
+    from repro_torch.kernels.oracle_fused import oracle_pair
+    from repro_torch.random import make_key
+
+    errs = {"kron_segsum": 0.0, "oracle_pair": 0.0}
+    dev = coords.device
+    E = min(CHECK_ELEMENTS, coords.shape[0])
+    log(f"kron_segsum vs plain on the first {E} elements, tolerance "
+        f"{TOL} x max|plain| (summation order)")
+    for mode in range(len(shape)):
+        rows, a, b = sorted_split(coords[:E], values[:E], factors, mode)
+        for prec in ("f32", "bf16"):
+            got = kron_segsum(rows, a, b, shape[mode], precision=prec)
+            again = kron_segsum(rows, a, b, shape[mode], precision=prec)
+            want = ref.kron_segsum_ref(rows, a, b, shape[mode], prec)
+            errs["kron_segsum"] = max(errs["kron_segsum"], check(
+                f"mode {mode} {prec} E={E} K={a.shape[1] * b.shape[1]}",
+                got, want, again))
+        del rows, a, b, got, again, want
+
+    empty = kron_segsum(torch.zeros((0,), dtype=torch.int32, device=dev),
+                        torch.zeros((0, 10), device=dev),
+                        torch.zeros((0, 10), device=dev), 7)
+    if not torch.equal(empty, torch.zeros((7, 100), device=dev)):
+        raise AssertionError("kron_segsum on no elements is not zero")
+    log("  empty input: zeros")
+
+    t4 = synth_tensor(FOUR_MODE[0], FOUR_MODE[1], alphas=1.0, seed=1)
+    c4, v4 = device_coords(t4, dev)
+    f4 = hooi.random_factors(t4.shape, (10, 10, 10, 10), make_key(4), dev)
+    rows, a, b = sorted_split(c4, v4, f4, 0)
+    got = kron_segsum(rows, a, b, t4.shape[0])
+    again = kron_segsum(rows, a, b, t4.shape[0])
+    want = ref.kron_segsum_ref(rows, a, b, t4.shape[0])
+    errs["kron_segsum"] = max(errs["kron_segsum"], check(
+        f"4-mode K={a.shape[1] * b.shape[1]} E={t4.nnz}", got, want, again))
+    del rows, a, b, got, again, want, c4, v4
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    E_hub, R_hub, share = HUB
+    rows = torch.randint(0, R_hub, (E_hub,), device=dev, generator=g)
+    rows[torch.rand(E_hub, device=dev, generator=g) < share] = R_hub // 3
+    rows = torch.sort(rows).values.to(torch.int32)
+    a = torch.randn((E_hub, 10), device=dev, generator=g)
+    b = torch.randn((E_hub, 10), device=dev, generator=g)
+    got = kron_segsum(rows, a, b, R_hub)
+    again = kron_segsum(rows, a, b, R_hub)
+    want = ref.kron_segsum_ref(rows, a, b, R_hub)
+    hub = int((rows == R_hub // 3).sum())
+    errs["kron_segsum"] = max(errs["kron_segsum"], check(
+        f"hub: {hub} of {E_hub} elements in one row", got, want, again))
+    del rows, a, b, got, again, want
+
+    log(f"oracle_pair vs plain on the main path's Z, tolerance {TOL} x "
+        "max|plain|")
+    mode = int(np.argmax(shape))
+    Z = ops.penultimate(coords, values, factors, mode, shape[mode])
+    R, K = Z.shape
+    for s in (1, 8):
+        xs, ys = ((K,), (R,)) if s == 1 else ((K, s), (R, s))
+        x = torch.randn(xs, device=dev, generator=g)
+        y = torch.randn(ys, device=dev, generator=g)
+        gx, gy = oracle_pair(Z, x, y)
+        ax, ay = oracle_pair(Z, x, y)
+        wx, wy = ref.oracle_pair_ref(Z, x, y)
+        hx = oracle_pair(Z, x, None)[0]
+        hy = oracle_pair(Z, None, y)[1]
+        errs["oracle_pair"] = max(
+            errs["oracle_pair"],
+            check(f"Z@x   Z={R}x{K} s={s}", gx, wx, ax),
+            check(f"Z^T@y Z={R}x{K} s={s}", gy, wy, ay),
+            check(f"Z@x   alone s={s}", hx, wx, oracle_pair(Z, x, None)[0]),
+            check(f"Z^T@y alone s={s}", hy, wy, oracle_pair(Z, None, y)[1]))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_main_path(t) -> dict:
+    import torch
+    from repro_torch.core.hooi import hooi
+    from repro_torch.kernels.kron_segsum import kron_segsum
+    from repro_torch.kernels.oracle_fused import oracle_pair
+
+    invocations = INVOCATIONS
+    elapsed = time.perf_counter() - T_START
+    if elapsed > CUT_INVOCATIONS_AFTER_S:
+        invocations = 1
+        log(f"CUT: {elapsed:.0f} s used before the main path; invocations "
+            f"{INVOCATIONS} -> {invocations}, shape unchanged")
+    sweeps = []
+
+    def on_sweep(it, seconds, fit):
+        sweeps.append((seconds, fit))
+        log(f"  sweep {it}: {seconds:.3f} s (mode steps), fit={fit:.6f}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kron_segsum.launches = 0
+    oracle_pair.launches = 0
+    t0 = time.perf_counter()
+    dec, fits = hooi(t, CORE, n_invocations=invocations, seed=0,
+                     use_fused_oracle=True, on_sweep=on_sweep, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"kron_segsum": kron_segsum.launches,
+                "oracle_pair": oracle_pair.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main path: nnz={t.nnz} invocations={invocations} wall={wall:.3f} s "
+        f"fits={fits} launches={launches} "
+        f"max_memory_allocated={peak / 2**30:.3f} GiB")
+    if not all(np.isfinite(fits)) or not all(0.0 <= f <= 1.0 for f in fits):
+        raise AssertionError(f"fits not finite in [0, 1]: {fits}")
+    if any(b < a - 1e-3 for a, b in zip(fits, fits[1:])):
+        raise AssertionError(f"fits decrease by more than 1e-3: {fits}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    for n, F in enumerate(dec.factors):
+        if tuple(F.shape) != (t.shape[n], CORE[n]) or \
+                not bool(torch.isfinite(F).all()):
+            raise AssertionError(f"factor {n} bad: {tuple(F.shape)}")
+    return {"launches": launches, "fits": fits, "sweeps": sweeps,
+            "invocations": invocations, "peak_bytes": peak, "wall_s": wall}
+
+
+def phase_small_checks() -> None:
+    from repro_torch.core.coo import SparseTensor
+    from repro_torch.core.hooi import hooi
+    from repro_torch.data.tensors import synth_tensor
+
+    r = np.random.default_rng(3)  # the repo's low-rank test recipe
+    G = r.standard_normal((2, 2, 2))
+    A = [r.standard_normal((L, 2)) for L in (12, 10, 8)]
+    dense = np.einsum("abc,ia,jb,kc->ijk", G, A[0], A[1], A[2])
+    low = SparseTensor.fromdense(dense.astype(np.float32))
+    _, fits = hooi(low, (2, 2, 2), n_invocations=3, seed=0,
+                   use_fused_oracle=True, device=DEVICE)
+    log(f"lowrank recipe on the card: fits={fits}")
+    if not fits[-1] > 0.99:
+        raise AssertionError(f"low-rank fit {fits[-1]} <= 0.99")
+
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    _, fits_gpu = hooi(t, (5, 5, 5), n_invocations=3, seed=2,
+                       use_fused_oracle=True, device=DEVICE)
+    _, fits_cpu = hooi(t, (5, 5, 5), n_invocations=3, seed=2,
+                       use_fused_oracle=True, device="cpu")
+    diff = float(np.max(np.abs(np.subtract(fits_gpu, fits_cpu))))
+    log(f"small tensor card vs CPU plain path: fits {fits_gpu} vs "
+        f"{fits_cpu}, max diff {diff:.2e} (tolerance 1e-4)")
+    if not diff <= 1e-4:
+        raise AssertionError(f"card and CPU fits differ by {diff}")
+
+
+def phase_profile(t) -> None:
+    """Device time by kernel over one invocation of the main path (set-up,
+    one sweep, core and fit), and the share of the wall time the device
+    was busy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.hooi import hooi
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        hooi(t, CORE, n_invocations=1, seed=0, use_fused_oracle=True,
+             device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profile of hooi(n_invocations=1): wall {wall * 1e3:.1f} ms, "
+        f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%)")
+    for ms, count, key in rows[:14]:
+        log(f"  {ms:9.3f} ms {count:5d}x  {key[:90]}")
+
+
+def phase_timings(coords, values, factors, shape) -> dict:
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.kron_segsum import kron_segsum
+    from repro_torch.kernels.oracle_fused import oracle_pair
+
+    out = {"kron_segsum": [], "oracle_pair": []}
+    dev = coords.device
+    g = torch.Generator(device=dev).manual_seed(7)
+    for mode in range(len(shape)):
+        rows, a, b = sorted_split(coords, values, factors, mode)
+        E, Ka, Kb = a.shape[0], a.shape[1], b.shape[1]
+        ms = cuda_ms(lambda: kron_segsum(rows, a, b, shape[mode]), reps=5)
+        plain = cuda_ms(lambda: ref.kron_segsum_ref(rows, a, b, shape[mode]),
+                        reps=2)
+        bound, by = kron_bound_ms(E, Ka, Kb, shape[mode])
+        log(f"kron_segsum mode {mode}: E={E} K={Ka * Kb} rows={shape[mode]} "
+            f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bound:.4f} ({by})")
+        out["kron_segsum"].append((ms, plain, bound, by))
+        del rows, a, b
+        torch.cuda.empty_cache()
+
+        Z = ops.penultimate(coords, values, factors, mode, shape[mode])
+        R, K = Z.shape
+        x = torch.randn((K,), device=dev, generator=g)
+        y = torch.randn((R,), device=dev, generator=g)
+        # per call, over the main path's two calls (Z @ x, then Zᵀ @ y)
+        ms = cuda_ms(lambda: (oracle_pair(Z, x, None),
+                              oracle_pair(Z, None, y)), reps=50, warmup=3) / 2
+        plain = cuda_ms(lambda: (ref.oracle_pair_ref(Z, x, None),
+                                 ref.oracle_pair_ref(Z, None, y)),
+                        reps=50, warmup=3) / 2
+        lib = cuda_ms(lambda: (torch.matmul(Z, x), torch.matmul(y, Z)),
+                      reps=50, warmup=3) / 2
+        bound, by = oracle_half_bound_ms(R, K, 1)
+        log(f"oracle_pair mode {mode}: Z={R}x{K} s=1 one half per call "
+            f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+            f"bound_ms={bound:.4f} ({by})")
+        out["oracle_pair"].append((ms, plain, bound, by, lib))
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device; this script runs the port on "
+              "the card only", file=sys.stderr)
+        return 1
+    from repro_torch.data.tensors import synth_tensor
+    from repro_torch.convert import device_coords
+    from repro_torch.core import hooi
+    from repro_torch.device import full_precision_matmul
+    from repro_torch.kernels import build
+    from repro_torch.random import make_key
+
+    smi = nvidia_smi_line()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    print(smi, flush=True)
+    full_precision_matmul()
+
+    t0 = time.perf_counter()
+    report = build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(report)} "
+        + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in report.items()))
+    for name, info in report.items():
+        for line in info["log"].splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    t = synth_tensor(MAIN_SHAPE, MAIN_NNZ, alphas=MAIN_ALPHAS, seed=0)
+    log(f"main tensor: shape {t.shape} nnz {t.nnz} (of {MAIN_NNZ} drawn) "
+        f"generated in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device(DEVICE)
+    coords, values = device_coords(t, dev)
+    factors = hooi.random_factors(t.shape, CORE, make_key(0), dev)
+
+    errs = phase_kernel_checks(coords, values, factors, t.shape)
+    del coords, values
+    torch.cuda.empty_cache()
+
+    main = phase_main_path(t)
+    phase_small_checks()
+    phase_profile(t)
+
+    coords, values = device_coords(t, dev)
+    timing = phase_timings(coords, values, factors, t.shape)
+    sweeps = max(main["invocations"], 1)
+    log(f"launches per sweep: kron_segsum "
+        f"{main['launches']['kron_segsum'] / sweeps:g}, oracle_pair "
+        f"{main['launches']['oracle_pair'] / sweeps:g}")
+
+    kernels = []
+    for name, source, replaces in (
+            ("kron_segsum", "src/repro_torch/kernels/csrc/kron_segsum.cu",
+             "src/repro/kernels/kron_segsum.py:154"),
+            ("oracle_pair", "src/repro_torch/kernels/csrc/oracle_pair.cu",
+             "src/repro/kernels/oracle_fused.py:56")):
+        rows = timing[name]
+        mean = lambda i: float(np.mean([r[i] for r in rows]))  # noqa: E731
+        by = rows[int(np.argmax([r[2] for r in rows]))][3]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main["launches"][name],
+            "launches_per_sweep": main["launches"][name] / sweeps,
+            "max_abs_err": errs[name], "ms": mean(0), "plain_ms": mean(1),
+            "bound_ms": mean(2), "bound_by": by,
+            "library_ms": mean(4) if name == "oracle_pair" else None,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,99 @@
+"""Sparse tensor container in coordinate (COO) format.
+
+The port's own copy of the reference's host-side ``SparseTensor``
+(``src/repro/core/coo.py``), limited to what the single-process slice uses.
+It stays in numpy: generation and validation are host work, and the device
+copies are made at the entry point (``repro_torch.convert.device_coords``).
+A mode-n *slice* is the set of elements sharing the n-th coordinate.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["SparseTensor"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseTensor:
+    """N-dimensional sparse tensor in COO format.
+
+    Attributes:
+      coords: int32/int64 array of shape (nnz, N); 0-based coordinates.
+      values: float array of shape (nnz,).
+      shape:  tuple of N mode lengths (L_1, ..., L_N).
+    """
+
+    coords: np.ndarray
+    values: np.ndarray
+    shape: tuple[int, ...]
+
+    def __post_init__(self):
+        coords = np.asarray(self.coords)
+        values = np.asarray(self.values)
+        if coords.ndim != 2:
+            raise ValueError(f"coords must be 2-D (nnz, N), got {coords.shape}")
+        if values.ndim != 1 or values.shape[0] != coords.shape[0]:
+            raise ValueError(
+                f"values must be 1-D with len == nnz, got {values.shape} vs "
+                f"{coords.shape[0]} coords"
+            )
+        if len(self.shape) != coords.shape[1]:
+            raise ValueError(
+                f"shape has {len(self.shape)} modes but coords has {coords.shape[1]}"
+            )
+        if coords.size and (coords.min() < 0):
+            raise ValueError("coordinates must be non-negative")
+        for n, L in enumerate(self.shape):
+            if coords.size and int(coords[:, n].max()) >= L:
+                raise ValueError(
+                    f"mode-{n} coordinate {int(coords[:, n].max())} out of bounds "
+                    f"for length {L}"
+                )
+        object.__setattr__(self, "coords", coords)
+        object.__setattr__(self, "values", values)
+        object.__setattr__(self, "shape", tuple(int(L) for L in self.shape))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.coords.shape[0])
+
+    def slice_sizes(self, mode: int) -> np.ndarray:
+        """Cardinality |Slice_n^l| for every l in [0, L_n)."""
+        return np.bincount(self.coords[:, mode], minlength=self.shape[mode])
+
+    def sorted_by_mode(self, mode: int) -> "SparseTensor":
+        """Elements stably sorted by their mode-n coordinate."""
+        order = np.argsort(self.coords[:, mode], kind="stable")
+        return SparseTensor(self.coords[order], self.values[order], self.shape)
+
+    def todense(self) -> np.ndarray:
+        """Materialize as a dense numpy array (tests / small tensors only)."""
+        total = int(np.prod(self.shape))
+        if total > 200_000_000:
+            raise MemoryError(f"refusing to densify {self.shape}")
+        out = np.zeros(self.shape, dtype=np.float64)
+        np.add.at(out, tuple(self.coords.T), self.values)
+        return out
+
+    @staticmethod
+    def fromdense(arr: np.ndarray, tol: float = 0.0) -> "SparseTensor":
+        mask = np.abs(arr) > tol
+        coords = np.argwhere(mask)
+        values = arr[mask].astype(np.float64)
+        return SparseTensor(coords, values, arr.shape)
+
+    def dedup(self) -> "SparseTensor":
+        """Merge duplicate coordinates (sum values)."""
+        flat = np.ravel_multi_index(tuple(self.coords.T), self.shape)
+        uniq, inv = np.unique(flat, return_inverse=True)
+        vals = np.zeros(len(uniq), dtype=self.values.dtype)
+        np.add.at(vals, inv, self.values)
+        coords = np.stack(np.unravel_index(uniq, self.shape), axis=1)
+        return SparseTensor(coords, vals, self.shape)

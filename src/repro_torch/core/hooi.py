@@ -1,0 +1,234 @@
+"""HOOI (Higher-Order Orthogonal Iteration) — single-process entry point.
+
+The port of ``src/repro/core/hooi.py``; the procedure of paper Fig 2:
+
+    for each mode n:
+        Z_(n)  <- TTM-chain skipping n, unfolded       (engine Z-build stage)
+        F~_n   <- leading K_n left singular vectors    (engine oracle stage)
+    core   <- T x_1 F~_1^T ... x_N F~_N^T              (once per sweep)
+
+``hooi`` drives ``engine.sweep.run_hooi_sweeps`` with ``engine.steps``'s
+local mode step. On the card the Z-builds (the core's included) run the
+CUDA ``kron_segsum`` kernel and, with ``use_fused_oracle=True``, the
+Lanczos products run the CUDA ``oracle_pair`` kernel.
+
+Signatures follow the reference where the arguments mean the same. The
+reference's ``use_kernels`` is absent: here the device chooses the Z-build
+(kernel on the card, plain PyTorch on the CPU). Added: ``device`` (default
+the card), ``draw`` (the random-draw seam, ``repro_torch.random``),
+``on_sweep``, and ``init`` also accepting explicit initial factors.
+Knobs the slice does not carry raise ``NotImplementedError`` naming their
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import convert, envknobs
+from repro_torch.core.coo import SparseTensor
+from repro_torch.device import full_precision_matmul, resolve_device
+from repro_torch.random import Draw, Key, make_key
+
+__all__ = ["Decomposition", "random_factors", "hosvd_init", "hooi_invocation",
+           "hooi", "fit_score"]
+
+
+@dataclasses.dataclass
+class Decomposition:
+    core: torch.Tensor | None  # (K_1..K_N); None until finalized
+    factors: list[torch.Tensor]  # F_n: (L_n, K_n), orthonormal columns
+
+    @property
+    def core_dims(self) -> tuple[int, ...]:
+        return tuple(int(f.shape[1]) for f in self.factors)
+
+
+def random_factors(shape: Sequence[int], core_dims: Sequence[int], key: Key,
+                   device: str | torch.device | None = None
+                   ) -> list[torch.Tensor]:
+    """Random orthonormal factor matrices (paper: valid HOOI bootstrap).
+
+    The QR runs on the host (LAPACK) and the result moves to ``device``, so
+    the card and the CPU start from the same factors, signs included.
+    """
+    dev = resolve_device(device)
+    factors = []
+    for n, (L, K) in enumerate(zip(shape, core_dims)):
+        g = key.fold_in(n).normal((L, K), "cpu")
+        q, _ = torch.linalg.qr(g)
+        factors.append(q.to(dev))
+    return factors
+
+
+def hosvd_init(t: SparseTensor, core_dims: Sequence[int],
+               device: str | torch.device | None = None) -> list[torch.Tensor]:
+    """HOSVD bootstrap via dense unfoldings — small tensors / tests only."""
+    dev = resolve_device(device)
+    dense = torch.as_tensor(t.todense(), dtype=torch.float32).to(dev)
+    factors = []
+    for n, K in enumerate(core_dims):
+        M = dense.movedim(n, 0).reshape(t.shape[n], -1)
+        u, _, _ = torch.linalg.svd(M, full_matrices=False)
+        factors.append(u[:, :K])
+    return factors
+
+
+def _slice_knobs(precision, lanczos_block, fused_zbuild, warm_start,
+                 objective) -> str:
+    """Resolve the knobs this slice carries; refuse the others loudly.
+
+    Returns the resolved Z-build precision.
+    """
+    from repro_torch.engine.zbuild import resolve_precision
+
+    block = envknobs.lanczos_block() if lanczos_block is None \
+        else int(lanczos_block)
+    if block is not None and block != 1:
+        raise NotImplementedError(
+            f"lanczos_block={block}: block Lanczos is ROADMAP Queue A item 7")
+    fz = envknobs.fused_zbuild() if fused_zbuild is None else fused_zbuild
+    if fz:
+        raise NotImplementedError(
+            "fused_zbuild: the fused kron_segsum_oracle kernel is ROADMAP "
+            "Queue A item 7 / Queue B item 3")
+    ws = envknobs.warm_start() if warm_start is None else warm_start
+    if ws not in (None, "none"):
+        raise NotImplementedError(
+            f"warm_start={ws!r}: sketched warm starts are ROADMAP Queue A "
+            "item 8")
+    obj = envknobs.objective() if objective is None else objective
+    if obj not in (None, "tucker"):
+        raise NotImplementedError(
+            f"objective={obj!r}: objectives other than tucker are ROADMAP "
+            "Queue A item 9")
+    return resolve_precision(precision)
+
+
+def hooi_invocation(
+    t: SparseTensor,
+    factors: list[torch.Tensor],
+    key: Key,
+    lanczos_iters: int | None = None,
+    timings: dict | None = None,
+    use_fused_oracle: bool | None = None,
+    precision: str | None = None,
+    lanczos_block: int | None = None,
+    fused_zbuild: bool | None = None,
+    warm_start: str | None = None,
+    objective=None,
+    device: str | torch.device | None = None,
+) -> list[torch.Tensor]:
+    """One HOOI invocation: refine all factor matrices (no core update).
+
+    Per-mode keys are ``key.fold_in(n)``, the reference's convention for
+    this entry point. ``factors`` must lie on ``device`` (default the card).
+    """
+    from repro_torch.engine.steps import local_mode_step
+
+    dev = resolve_device(device)
+    full_precision_matmul()
+    prec = _slice_knobs(precision, lanczos_block, fused_zbuild, warm_start,
+                        objective)
+    coords, values = convert.device_coords(t, dev)
+    new_factors = list(factors)
+    track = timings if timings is not None else {}
+    for n in range(t.ndim):
+        new_factors[n] = local_mode_step(
+            coords, values, new_factors, n, t.shape[n], key.fold_in(n),
+            niter=lanczos_iters, use_fused_oracle=bool(use_fused_oracle),
+            precision=prec, timings=track)
+    return new_factors
+
+
+def fit_score(t: SparseTensor, dec: Decomposition) -> float:
+    """Fit = 1 - ||T - Z||_F / ||T||_F.
+
+    With orthonormal factors and core = T x_n F_n^T, ||T - Z||^2 =
+    ||T||^2 - ||G||^2, so no reconstruction is materialized (``t`` must be
+    duplicate-free, as ``synth_tensor`` and ``dedup`` make it).
+    """
+    t_norm2 = float(np.sum(t.values**2))
+    g_norm2 = float(torch.sum(dec.core**2))
+    err2 = max(t_norm2 - g_norm2, 0.0)
+    return 1.0 - float(np.sqrt(err2) / (np.sqrt(t_norm2) + 1e-30))
+
+
+def hooi(
+    t: SparseTensor,
+    core_dims: Sequence[int],
+    n_invocations: int = 5,
+    init: str | Sequence = "random",
+    seed: int = 0,
+    lanczos_iters: int | None = None,
+    verbose: bool = False,
+    use_fused_oracle: bool | None = None,
+    precision: str | None = None,
+    lanczos_block: int | None = None,
+    fused_zbuild: bool | None = None,
+    warm_start: str | None = None,
+    objective=None,
+    metrics_out: dict | None = None,
+    *,
+    device: str | torch.device | None = None,
+    draw: Draw | None = None,
+    on_sweep: Callable[[int, float, float], None] | None = None,
+) -> tuple[Decomposition, list[float]]:
+    """Full HOOI driver: bootstrap, invoke repeatedly, finalize core.
+
+    ``init`` is ``"random"`` (orthonormalized draws along the reference's
+    key chain), ``"hosvd"``, or a sequence of initial factor matrices.
+    ``use_fused_oracle`` routes the Lanczos products through the
+    ``oracle_pair`` kernel. ``precision`` is ``"f32"``/``"bf16"``/None
+    (None honors ``REPRO_PRECISION``). ``lanczos_block``, ``fused_zbuild``,
+    ``warm_start`` and ``objective`` accept only their default meaning in
+    this slice. ``metrics_out`` is accepted for signature parity: the
+    tucker objective adds no per-sweep metrics.
+
+    ``draw`` replaces the default seeded draws (``repro_torch.random``);
+    ``on_sweep(it, seconds, fit)`` observes every sweep.
+    """
+    del metrics_out  # the tucker objective records nothing there
+    dev = resolve_device(device)
+    full_precision_matmul()
+    prec = _slice_knobs(precision, lanczos_block, fused_zbuild, warm_start,
+                        objective)
+    fused = bool(use_fused_oracle)
+
+    key = make_key(seed, draw)
+    if isinstance(init, str):
+        if init == "random":
+            factors = random_factors(t.shape, core_dims, key, dev)
+        elif init == "hosvd":
+            factors = hosvd_init(t, core_dims, dev)
+        else:
+            raise ValueError(f"unknown init {init!r}")
+    else:
+        factors = convert.factors(init, dev)
+        got = tuple((int(f.shape[0]), int(f.shape[1])) for f in factors)
+        if got != tuple(zip(t.shape, core_dims)):
+            raise ValueError(f"initial factors have shapes {got}, expected "
+                             f"{tuple(zip(t.shape, core_dims))}")
+
+    coords, values = convert.device_coords(t, dev)
+
+    from repro_torch.engine.steps import local_mode_step
+    from repro_torch.engine.sweep import run_hooi_sweeps
+
+    def mode_step(n, facs, kk):
+        return local_mode_step(coords, values, facs, n, t.shape[n], kk,
+                               niter=lanczos_iters, use_fused_oracle=fused,
+                               precision=prec)
+
+    def report(it, seconds, fit):
+        if verbose:
+            print(f"  HOOI invocation {it}: fit={fit:.4f}")
+        if on_sweep is not None:
+            on_sweep(it, seconds, fit)
+
+    return run_hooi_sweeps(coords, values, t, factors, key, n_invocations,
+                           mode_step, on_sweep=report)

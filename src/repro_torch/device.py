@@ -1,0 +1,37 @@
+"""Device policy of the port's entry points.
+
+``device=None`` means the card. A caller that wants the plain PyTorch path on
+the CPU says so with ``device="cpu"``; the port never drops to the CPU on its
+own, because a run that silently left the card would report CPU numbers as
+if they were the card's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device", "full_precision_matmul"]
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another one. Raises ``RuntimeError`` when CUDA is wanted but absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA unless asked otherwise, and no CUDA "
+            "device is available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU")
+    return dev
+
+
+def full_precision_matmul() -> None:
+    """Pin f32 matrix products to full f32 on the port's path.
+
+    TF32 keeps about three decimal digits, so the Lanczos products and the
+    core projection would drift from the reference by far more than the
+    1e-4 fit parity the port is held to. Set on every entry point rather
+    than trusting the process default.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

@@ -1,0 +1,65 @@
+"""Z-build stage: the §4.3 TTM hot spot, one implementation for every path.
+
+The port of ``src/repro/engine/zbuild.py``. Each HOOI mode step first
+materializes the (local) penultimate matrix
+``Z = segment_sum(kron_contributions, rows)``. There is one route, through
+``kernels.ops``: the CUDA ``kron_segsum`` kernel for tensors on the card,
+its plain version for tensors on the CPU. The device decides, not a flag.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch import envknobs
+from repro_torch.kernels import ops as kernel_ops
+
+__all__ = ["build_local_z", "resolve_precision", "PRECISIONS"]
+
+PRECISIONS = envknobs.PRECISIONS
+
+
+def resolve_precision(precision: str | None) -> str:
+    """Z-build precision for a mode step: ``"f32"`` or ``"bf16"``.
+
+    ``None`` honors ``REPRO_PRECISION``, else f32. The reference's
+    ``"auto"`` consults the fitted cost model, which this slice does not
+    have.
+    """
+    if precision in PRECISIONS:
+        return precision
+    if precision == "auto":
+        raise NotImplementedError(
+            "precision='auto' consults the fitted CostModel; calibration is "
+            "ROADMAP Queue A item 10")
+    if precision is not None:
+        raise ValueError(f"unknown precision {precision!r} "
+                         f"(expected one of {PRECISIONS + ('auto', None)})")
+    return envknobs.precision() or "f32"
+
+
+def build_local_z(
+    coords: torch.Tensor,
+    values: torch.Tensor,
+    local_rows: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    num_rows: int,
+    *,
+    sorted_rows: bool = True,
+    precision: str = "f32",
+) -> torch.Tensor:
+    """The (local) penultimate matrix Z — (num_rows, K_hat).
+
+    ``sorted_rows=True`` asserts that the elements are already sorted by
+    ``local_rows`` (the partition contract of the distributed path), which
+    skips the sort; the single-process path passes ``sorted_rows=False``
+    since raw COO order is arbitrary. ``precision="bf16"`` is the kernel's
+    contract: operands and products rounded to bf16, f32 accumulation.
+    """
+    fn = (kernel_ops.penultimate_sorted if sorted_rows
+          else kernel_ops.penultimate_local)
+    return fn(coords, values, local_rows, factors, mode, num_rows,
+              precision=precision)

@@ -1,0 +1,148 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` (the kernels are built
+from ``src/repro_torch/kernels/csrc``); a CUDA kernel has no CPU mode, so
+on a machine without a card they skip. Run them on the card with::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the kernels sum in another order than the plain versions
+(chunked sequential sums and fixed-order partials against ``index_add_``'s
+atomics and cuBLAS's reductions), so results agree to f32 rounding relative
+to the largest output, 2e-4 of it; reruns of a kernel are bitwise equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.core import hooi, ttm
+from repro_torch.data.tensors import synth_tensor
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.kron_segsum import kron_segsum
+from repro_torch.kernels.oracle_fused import oracle_pair
+from repro_torch.random import make_key
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got - want).abs().max()) / scale
+
+
+def _sorted_inputs(seed, E, Ka, Kb, R, hub=0.0, device="cuda"):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rows = torch.randint(0, R, (E,), generator=g)
+    if hub:
+        rows[torch.rand(E, generator=g) < hub] = R // 3
+    rows = torch.sort(rows).values.to(torch.int32)
+    a = torch.randn((E, Ka), generator=g)
+    b = torch.randn((E, Kb), generator=g)
+    return rows.to(device), a.to(device), b.to(device), R
+
+
+@pytest.mark.parametrize("E,Ka,Kb,R,hub", [
+    (1, 1, 1, 1, 0.0),
+    (7, 3, 5, 4, 0.0),
+    (5000, 10, 10, 300, 0.0),
+    (3000, 2, 257, 1, 0.0),        # one row across three chunks
+    (20000, 4, 25, 64, 0.6),       # hub row spanning many chunks
+    (4000, 100, 10, 500, 0.0),     # K_hat = 1000 (4-mode, K = 10)
+    (2048, 3, 3, 4096, 0.0),       # exact chunk multiple, sparse rows
+])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_kron_segsum_kernel_matches_plain(cuda, E, Ka, Kb, R, hub, precision):
+    rows, a, b, R = _sorted_inputs(0, E, Ka, Kb, R, hub)
+    before = kron_segsum.launches
+    got = kron_segsum(rows, a, b, R, precision=precision)
+    again = kron_segsum(rows, a, b, R, precision=precision)
+    torch.cuda.synchronize()
+    assert kron_segsum.launches == before + 2
+    want = ref.kron_segsum_ref(rows, a, b, R, precision)
+    assert _rel_err(got, want) <= 2e-4
+    assert torch.equal(got, again)
+
+
+def test_kron_segsum_kernel_empty_and_checks(cuda):
+    rows, a, b, R = _sorted_inputs(1, 100, 3, 4, 20)
+    before = kron_segsum.launches
+    z = kron_segsum(rows[:0], a[:0], b[:0], R)
+    assert kron_segsum.launches == before
+    assert torch.equal(z, torch.zeros((R, 12), device=cuda))
+    with pytest.raises(ValueError):
+        kron_segsum(rows, a.t().contiguous().t(), b, R)  # not contiguous
+    with pytest.raises(ValueError):
+        kron_segsum(rows.cpu(), a, b, R)  # mixed devices
+    # ids outside [0, num_rows) add nothing, as in the reference's
+    # segment_sum, and no write leaves Z
+    R_cut = int(rows[-1])
+    keep = rows < R_cut
+    got = kron_segsum(rows, a, b, R_cut)
+    want = ref.kron_segsum_ref(rows[keep], a[keep], b[keep], R_cut)
+    assert _rel_err(got, want) <= 2e-4
+
+
+@pytest.mark.parametrize("R,K,s", [(1, 1, 1), (300, 100, 1), (28818, 100, 1),
+                                   (28818, 100, 8), (40, 1000, 3),
+                                   (1000, 513, 16)])
+def test_oracle_pair_kernel_matches_plain(cuda, R, K, s):
+    g = torch.Generator(device="cpu").manual_seed(R + K + s)
+    Z = torch.randn((R, K), generator=g).to(cuda)
+    shape_x, shape_y = ((K,), (R,)) if s == 1 else ((K, s), (R, s))
+    x = torch.randn(shape_x, generator=g).to(cuda)
+    y = torch.randn(shape_y, generator=g).to(cuda)
+    before = oracle_pair.launches
+    gx, gy = oracle_pair(Z, x, y)
+    ax, ay = oracle_pair(Z, x, y)
+    torch.cuda.synchronize()
+    assert oracle_pair.launches == before + 2
+    wx, wy = ref.oracle_pair_ref(Z, x, y)
+    assert gx.shape == wx.shape and gy.shape == wy.shape
+    assert _rel_err(gx, wx) <= 2e-4 and _rel_err(gy, wy) <= 2e-4
+    assert torch.equal(gx, ax) and torch.equal(gy, ay)
+    # one half at a time, as the Lanczos loop calls it
+    hx, none_y = oracle_pair(Z, x, None)
+    none_x, hy = oracle_pair(Z, None, y)
+    torch.cuda.synchronize()
+    assert none_x is None and none_y is None
+    assert oracle_pair.launches == before + 4
+    assert torch.equal(hx, gx) and torch.equal(hy, gy)
+
+
+def test_hooi_on_card_matches_cpu(cuda):
+    """The whole slice on the card (both kernels) against the port's plain
+    CPU path, same seed and draws."""
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    kz, ko = kron_segsum.launches, oracle_pair.launches
+    dec_g, fits_g = hooi.hooi(t, (5, 5, 5), n_invocations=3, seed=2,
+                              use_fused_oracle=True)
+    assert kron_segsum.launches > kz and oracle_pair.launches > ko
+    dec_c, fits_c = hooi.hooi(t, (5, 5, 5), n_invocations=3, seed=2,
+                              use_fused_oracle=True, device="cpu")
+    np.testing.assert_allclose(fits_g, fits_c, rtol=0, atol=1e-4)
+    for F, Fc in zip(dec_g.factors, dec_c.factors):
+        F = F.cpu().numpy()
+        Fc = Fc.numpy()
+        np.testing.assert_allclose(F @ F.T, Fc @ Fc.T, atol=1e-3)
+
+
+def test_core_on_card_matches_plain(cuda):
+    t = synth_tensor((40, 30, 20, 10), 5_000, alphas=1.0, seed=4)
+    coords, values = convert.device_coords(t, cuda)
+    factors = hooi.random_factors(t.shape, (3, 4, 2, 5), make_key(1))
+    got = ttm.core_from_factors(coords, values, factors)
+    want = ttm.core_from_factors(coords.cpu(), values.cpu(),
+                                 [f.cpu() for f in factors])
+    assert _rel_err(got.cpu(), want) <= 2e-4
+    Z = ops.penultimate(coords, values, factors, 2, t.shape[2])
+    Zp = ttm.penultimate(coords, values, factors, 2, t.shape[2])
+    assert _rel_err(Z, Zp) <= 2e-4

@@ -1,0 +1,74 @@
+"""The PyTorch port's import graph: it stands apart from JAX and ``repro``.
+
+* every ``repro_torch`` module imports here, with no CUDA and no ``triton``
+  (nothing is built or loaded at import);
+* importing the whole package in a fresh interpreter leaves ``jax`` and
+  ``repro`` out of ``sys.modules`` and loads no kernel library;
+* no port source, and not ``chip_smoke.py``, imports ``jax`` or ``repro``.
+"""
+
+import glob
+import importlib
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+PORT_FILES = sorted(glob.glob(os.path.join(SRC, "repro_torch", "**", "*.py"),
+                              recursive=True))
+
+
+def _modules():
+    for py in PORT_FILES:
+        mod = os.path.relpath(py, SRC)[:-3].replace(os.sep, ".")
+        yield mod[: -len(".__init__")] if mod.endswith(".__init__") else mod
+
+
+def test_every_port_module_imports():
+    failures = {}
+    for mod in _modules():
+        try:
+            importlib.import_module(mod)
+        except Exception as e:  # noqa: BLE001 — report all, not just first
+            failures[mod] = f"{type(e).__name__}: {e}"
+    assert not failures, f"port modules that fail to import: {failures}"
+    assert len(list(_modules())) >= 20
+
+
+def test_port_import_leaves_jax_and_repro_unloaded():
+    mods = ", ".join(repr(m) for m in _modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in [{mods}]:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "from repro_torch.kernels import build\n"
+        "print(bad, build._LIBS)\n"
+        "sys.exit(1 if bad or build._LIBS else 0)\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)",
+                        re.MULTILINE)
+
+
+def test_no_port_source_imports_jax_or_repro():
+    offenders = {}
+    for py in PORT_FILES + [os.path.join(REPO, "chip_smoke.py")]:
+        text = open(py, encoding="utf-8").read()
+        hits = _FORBIDDEN.findall(text)
+        if hits:
+            offenders[os.path.relpath(py, REPO)] = hits
+    assert not offenders, f"port files importing jax/repro: {offenders}"
+
+
+def test_kernel_sources_present():
+    from repro_torch.kernels import build
+
+    assert set(build.sources()) == {"kron_segsum", "oracle_pair"}

@@ -1,0 +1,294 @@
+"""The port's kernel wrappers on the CPU against the reference's kernels.
+
+On the CPU each port wrapper runs its plain PyTorch version (the CUDA
+kernels are held against those same plain versions on the card, in
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``). The same numpy inputs
+go to both packages. Twins of the ``tests/test_kernels.py`` cases; f32
+tolerance rtol = atol = 2e-4 as in ``tests/test_hooi.py``, and the bf16
+contract bit for bit.
+
+The reference's ``oracle_pair`` runs as its own tests run it, in interpret
+mode. Its Pallas ``kron_segsum`` does not run in interpret mode under the
+installed JAX (``jax.experimental.pallas.load`` no longer exists, so the
+reference's own ``test_kron_segsum_*`` fail there too); the ``kron_segsum``
+twins therefore hold the port against the reference's plain
+``repro.kernels.ref.kron_segsum_ref``, the function that kernel is tested
+against.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _hypothesis_compat import given, settings, st
+
+from repro.core import ttm
+from repro.core.hooi import random_factors
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as jax_ref
+from repro.kernels.oracle_fused import oracle_pair as pallas_oracle_pair
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.kron_segsum import kron_segsum
+from repro_torch.kernels.oracle_fused import oracle_pair
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _mk(seed, E, Ka, Kb, R, dense=True):
+    """numpy inputs exactly as tests/test_kernels.py makes them."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.integers(0, R, size=E))
+    if dense:
+        _, rows = np.unique(rows, return_inverse=True)
+        rows = np.sort(rows)
+        R = max(int(rows.max()) + 1 if E else 1, 1)
+    a = rng.standard_normal((E, Ka)).astype(np.float32)
+    b = rng.standard_normal((E, Kb)).astype(np.float32)
+    return rows.astype(np.int32), a, b, R
+
+
+def _both_kron(rows, a, b, R, precision="f32"):
+    got = kron_segsum(torch.from_numpy(rows), torch.from_numpy(a),
+                      torch.from_numpy(b), R, precision=precision)
+    want = jax_ref.kron_segsum_ref(jnp.asarray(rows), jnp.asarray(a),
+                                   jnp.asarray(b), R, precision=precision)
+    return got.numpy(), np.asarray(want)
+
+
+# -------------------------------------------------------------- kron_segsum
+@pytest.mark.parametrize(
+    "E,Ka,Kb,R",
+    [
+        (1, 1, 1, 1),          # degenerate
+        (7, 3, 5, 4),          # tiny, unaligned everything
+        (256, 8, 16, 40),      # one exact element block
+        (300, 4, 130, 50),     # Kb > 128
+        (1000, 10, 10, 300),   # paper-like: K=10 3-D (K_hat=100)
+        (515, 2, 257, 1),      # all elements in one row
+        (64, 5, 7, 64),        # one element per row
+    ],
+)
+def test_kron_segsum_matches_ref(E, Ka, Kb, R):
+    got, want = _both_kron(*_mk(0, E, Ka, Kb, R))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@settings(max_examples=25, deadline=None)
+@given(
+    seed=st.integers(0, 1000),
+    E=st.integers(1, 400),
+    Ka=st.integers(1, 12),
+    Kb=st.integers(1, 40),
+    R=st.integers(1, 200),
+)
+def test_kron_segsum_property(seed, E, Ka, Kb, R):
+    got, want = _both_kron(*_mk(seed, E, Ka, Kb, R))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_kron_segsum_empty_input():
+    z = kron_segsum(torch.zeros((0,), dtype=torch.int32),
+                    torch.zeros((0, 3)), torch.zeros((0, 5)), 4)
+    assert tuple(z.shape) == (4, 15)
+    np.testing.assert_array_equal(z.numpy(), np.zeros((4, 15)))
+
+
+def test_kron_segsum_empty_matches_ref():
+    rows, a, b, _ = _mk(0, 0, 2, 7, 6)
+    got, want = _both_kron(rows, a, b, 6)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_kron_segsum_skewed_rows():
+    """Heavy-hub row distribution (one giant slice) — the paper's regime."""
+    rng = np.random.default_rng(3)
+    E, R = 2000, 64
+    rows = np.where(rng.random(E) < 0.6, 7, rng.integers(0, R, E))
+    rows = np.sort(rows).astype(np.int32)
+    a = rng.standard_normal((E, 4)).astype(np.float32)
+    b = rng.standard_normal((E, 25)).astype(np.float32)
+    got, want = _both_kron(rows, a, b, R)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_kron_segsum_bf16_contract():
+    """bf16: operands and products rounded as the reference's kernel and
+    reference round them, accumulation in f32."""
+    rows, a, b, R = _mk(15, 200, 6, 9, 30)
+    got, want = _both_kron(rows, a, b, R, precision="bf16")
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    f32 = ref.kron_segsum_ref(torch.from_numpy(rows), torch.from_numpy(a),
+                              torch.from_numpy(b), R).numpy()
+    assert np.abs(got - f32).max() <= 2e-2 * np.abs(f32).max()
+
+
+def test_kron_segsum_wrapper_checks():
+    rows, a, b, R = _mk(1, 20, 3, 4, 10)
+    r, ta, tb = (torch.from_numpy(x) for x in (rows, a, b))
+    with pytest.raises(TypeError):
+        kron_segsum(r.long(), ta, tb, R)
+    with pytest.raises(TypeError):
+        kron_segsum(r, ta.double(), tb, R)
+    with pytest.raises(ValueError):
+        kron_segsum(r[:-1], ta, tb, R)
+    with pytest.raises(ValueError):
+        kron_segsum(r, ta, tb, R, precision="fp8")
+    before = kron_segsum.launches
+    kron_segsum(r, ta, tb, R)
+    assert kron_segsum.launches == before  # the plain version is no launch
+
+
+# ------------------------------------------------------------- oracle_pair
+def _both_oracle(Z, x, y):
+    got = oracle_pair(torch.from_numpy(Z), torch.from_numpy(x),
+                      torch.from_numpy(y))
+    want = pallas_oracle_pair(jnp.asarray(Z), jnp.asarray(x),
+                              jnp.asarray(y), interpret=True)
+    return [g.numpy() for g in got], [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize(
+    "R,K", [(1, 1), (5, 3), (128, 128), (300, 100), (1000, 400), (40, 513)]
+)
+def test_oracle_pair_matches_ref(R, K):
+    rng = np.random.default_rng(5)
+    Z = rng.standard_normal((R, K)).astype(np.float32)
+    x = rng.standard_normal(K).astype(np.float32)
+    y = rng.standard_normal(R).astype(np.float32)
+    (gx, gy), (wx, wy) = _both_oracle(Z, x, y)
+    np.testing.assert_allclose(gx, wx, **TOL)
+    np.testing.assert_allclose(gy, wy, **TOL)
+
+
+@pytest.mark.parametrize(
+    "R,K,s",
+    [
+        (5, 3, 4),       # K_hat not a multiple of 128; panel wider than K
+        (300, 513, 8),   # multiple K blocks with a ragged tail
+        (40, 128, 16),   # exact single K block
+        (128, 100, 1),   # single-row-block Z, width-1 panel
+        (1, 1, 4),       # degenerate Z, panel wider than both dims
+    ],
+)
+def test_oracle_pair_panel_edge_geometry(R, K, s):
+    rng = np.random.default_rng(11)
+    Z = rng.standard_normal((R, K)).astype(np.float32)
+    X = rng.standard_normal((K, s)).astype(np.float32)
+    Y = rng.standard_normal((R, s)).astype(np.float32)
+    (gx, gy), (wx, wy) = _both_oracle(Z, X, Y)
+    assert gx.shape == (R, s) and gy.shape == (K, s)
+    np.testing.assert_allclose(gx, wx, **TOL)
+    np.testing.assert_allclose(gy, wy, **TOL)
+
+
+def test_oracle_pair_vector_panel_consistent():
+    """A width-1 panel reproduces the vector call column for column."""
+    rng = np.random.default_rng(12)
+    Z = torch.from_numpy(rng.standard_normal((60, 37)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(37).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal(60).astype(np.float32))
+    vx, vy = oracle_pair(Z, x, y)
+    px, py = oracle_pair(Z, x[:, None], y[:, None])
+    np.testing.assert_array_equal(vx.numpy(), px[:, 0].numpy())
+    np.testing.assert_array_equal(vy.numpy(), py[:, 0].numpy())
+    (gx, gy), (wx, wy) = _both_oracle(Z.numpy(), x.numpy(), y.numpy())
+    np.testing.assert_allclose(gx, wx, **TOL)
+    np.testing.assert_allclose(gy, wy, **TOL)
+
+
+@pytest.mark.parametrize("s", [None, 1, 5], ids=["vector", "s1", "s5"])
+def test_oracle_pair_one_half_matches_zero_companion(s):
+    """Leaving one operand out (None) gives the product the reference gives
+    with a zero companion, and None for the other half."""
+    rng = np.random.default_rng(13)
+    R, K = 70, 45
+    tail = () if s is None else (s,)
+    Z = rng.standard_normal((R, K)).astype(np.float32)
+    x = rng.standard_normal((K,) + tail).astype(np.float32)
+    y = rng.standard_normal((R,) + tail).astype(np.float32)
+    tZ = torch.from_numpy(Z)
+    gx, none_y = oracle_pair(tZ, torch.from_numpy(x), None)
+    none_x, gy = oracle_pair(tZ, None, torch.from_numpy(y))
+    assert none_x is None and none_y is None
+    wx = pallas_oracle_pair(jnp.asarray(Z), jnp.asarray(x),
+                            jnp.zeros_like(jnp.asarray(y)), interpret=True)[0]
+    wy = pallas_oracle_pair(jnp.asarray(Z), jnp.zeros_like(jnp.asarray(x)),
+                            jnp.asarray(y), interpret=True)[1]
+    np.testing.assert_allclose(gx.numpy(), np.asarray(wx), **TOL)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), **TOL)
+
+
+def test_oracle_pair_wrapper_checks():
+    Z = torch.zeros((6, 4))
+    with pytest.raises(ValueError):
+        oracle_pair(Z, torch.zeros(5), torch.zeros(6))
+    with pytest.raises(ValueError):
+        oracle_pair(Z, torch.zeros(4), torch.zeros((6, 1)))
+    with pytest.raises(TypeError):
+        oracle_pair(Z.double(), torch.zeros(4), torch.zeros(6))
+    with pytest.raises(ValueError):
+        oracle_pair(Z, None, None)
+    with pytest.raises(ValueError):
+        oracle_pair(Z, None, torch.zeros(4))
+
+
+# ------------------------------------------------- wrapper = core.ttm oracle
+def _factors(shape, core, seed):
+    facs = random_factors(shape, core, jax.random.PRNGKey(seed))
+    return facs, [torch.from_numpy(np.array(f)) for f in facs]
+
+
+@pytest.mark.parametrize("N,mode", [(3, 0), (3, 2), (4, 1), (4, 3)])
+def test_ops_penultimate_matches_core(N, mode):
+    rng = np.random.default_rng(7)
+    shape = tuple(int(L) for L in rng.integers(5, 12, N))
+    nnz = 150
+    coords = np.stack([rng.integers(0, L, nnz) for L in shape],
+                      1).astype(np.int32)
+    values = rng.standard_normal(nnz).astype(np.float32)
+    jf, tf = _factors(shape, tuple([3] * N), 0)
+    want = ttm.penultimate(jnp.asarray(coords), jnp.asarray(values), jf,
+                           mode, shape[mode])
+    got = ops.penultimate(torch.from_numpy(coords), torch.from_numpy(values),
+                          tf, mode, shape[mode])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("N,mode", [(3, 0), (3, 2), (4, 1)])
+def test_ops_penultimate_sorted_matches_core(N, mode):
+    """The sorted path (rows pre-sorted and dense) against the reference's
+    plain local penultimate, without any sort."""
+    rng = np.random.default_rng(9)
+    shape = tuple(int(L) for L in rng.integers(5, 12, N))
+    nnz = 150
+    coords = np.stack([rng.integers(0, L, nnz) for L in shape], 1)
+    coords = coords[np.argsort(coords[:, mode], kind="stable")]
+    coords = coords.astype(np.int32)
+    uniq, local = np.unique(coords[:, mode], return_inverse=True)
+    local = local.astype(np.int32)
+    R = len(uniq)
+    values = rng.standard_normal(nnz).astype(np.float32)
+    jf, tf = _factors(shape, tuple([3] * N), 0)
+    want = ttm.penultimate_local(jnp.asarray(coords), jnp.asarray(values),
+                                 jnp.asarray(local), jf, mode, R)
+    got = ops.penultimate_sorted(torch.from_numpy(coords),
+                                 torch.from_numpy(values),
+                                 torch.from_numpy(local), tf, mode, R)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_split_kron_dims_matches_split_ab():
+    rng = np.random.default_rng(4)
+    shape = (9, 8, 7, 6)
+    core = (2, 3, 4, 5)
+    coords = torch.from_numpy(np.stack(
+        [rng.integers(0, L, 40) for L in shape], 1).astype(np.int32))
+    values = torch.from_numpy(rng.standard_normal(40).astype(np.float32))
+    _, tf = _factors(shape, core, 2)
+    for mode in range(4):
+        a, b = ops._split_ab(coords, values, tf, mode)
+        assert (a.shape[1], b.shape[1]) == ops.split_kron_dims(core, mode)
+        assert (a.shape[1], b.shape[1]) == ref_ops.split_kron_dims(core, mode)
