@@ -15,16 +15,34 @@ Phases, each fatal on failure (nothing is caught):
    ``oracle_pair`` on the main path's Z with s = 1 and s = 8, both halves
    and each half alone (as the Lanczos loop calls it); each also rerun and
    required bitwise equal;
-4. the main path: ``repro_torch.core.hooi.hooi`` on the nell-2-sized
-   tensor ``synth_tensor((12092, 9184, 28818), 76_879_419,
+4. the single-process path: ``repro_torch.core.hooi.hooi`` on the
+   nell-2-sized tensor ``synth_tensor((12092, 9184, 28818), 76_879_419,
    alphas=(0.9, 0.9, 1.0), seed=0)``, core (10, 10, 10), 3 invocations,
    ``use_fused_oracle=True``, with both kernels' launch counts read around
    it; then the low-rank recipe (fit > 0.99) and a small tensor on the card
    against the port's plain CPU path;
 5. where a sweep's time goes: ``torch.profiler`` over one more invocation
-   of the main path, device time by kernel and the device's busy share;
-6. timings at the main path's shapes, against each kernel's bound; for
-   ``oracle_pair`` the main path's calls, one half at a time.
+   of that path, device time by kernel and the device's busy share;
+6. timings at that path's shapes, against each kernel's bound; for
+   ``oracle_pair`` the path's calls, one half at a time;
+7. ``kron_segsum_oracle`` against its plain version: the first 8M elements
+   of the main-path tensor sorted by each mode's rows, f32 and bf16,
+   panels of s = 1, 4 and 8, the 4-mode K̂ = 1000 case and the hub case;
+   reruns bitwise equal and Z bitwise equal to ``kron_segsum``'s;
+8. the distributed path: ``repro_torch.distributed.dist_hooi.dist_hooi`` on
+   the same tensor over a Lite plan for P = 4 ranks stacked on the card
+   (the plan is built once on the host, costed for ``path="auto"``), with
+   ``lanczos_block=8, fused_zbuild=True, use_fused_oracle=True``, 3
+   invocations, on ``path="liteopt"`` (boundary) and ``path="baseline"``
+   (psum), each with every kernel's launch count read around it; then a
+   small tensor on the card against the CPU, a ``torch.profiler`` pass over
+   one invocation, and ``kron_segsum_oracle`` timed at the distributed
+   shapes against its bound, its plain version and ``kron_segsum`` plus
+   one ``torch.matmul``.
+
+The distributed phases (7, 8) run right after the kernel checks (3); when
+the run is late, the single-process path is cut to one invocation (never
+its shape).
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit line, and as the last line ``{"ok": true, "device": {...}}``. Without
@@ -52,6 +70,11 @@ CHECK_ELEMENTS = 8_000_000  # main-path elements in the kron_segsum checks
 FOUR_MODE = ((200, 300, 400, 500), 2_000_000)  # K̂ = 1000 at K = 10
 HUB = (4_000_000, 50_000, 0.3)  # elements, rows, share in one row
 DEVICE = "cuda"
+FUSED_PANELS = (1, 4, 8)  # panel widths in the kron_segsum_oracle checks
+DIST_P = 4  # ranks stacked on the card
+DIST_BLOCK = 8  # the repo's roofline configuration (benchmarks/run.py)
+DIST_INVOCATIONS = 3
+DIST_SMALL = ((60, 50, 40), 20_000, (5, 5, 5))  # card vs CPU
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -233,15 +256,13 @@ def phase_kernel_checks(coords, values, factors, shape) -> dict:
 def phase_main_path(t) -> dict:
     import torch
     from repro_torch.core.hooi import hooi
-    from repro_torch.kernels.kron_segsum import kron_segsum
-    from repro_torch.kernels.oracle_fused import oracle_pair
 
     invocations = INVOCATIONS
     elapsed = time.perf_counter() - T_START
     if elapsed > CUT_INVOCATIONS_AFTER_S:
         invocations = 1
-        log(f"CUT: {elapsed:.0f} s used before the main path; invocations "
-            f"{INVOCATIONS} -> {invocations}, shape unchanged")
+        log(f"CUT: {elapsed:.0f} s used before the single-process path; "
+            f"invocations {INVOCATIONS} -> {invocations}, shape unchanged")
     sweeps = []
 
     def on_sweep(it, seconds, fit):
@@ -250,26 +271,22 @@ def phase_main_path(t) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kron_segsum.launches = 0
-    oracle_pair.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     dec, fits = hooi(t, CORE, n_invocations=invocations, seed=0,
                      use_fused_oracle=True, on_sweep=on_sweep, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"kron_segsum": kron_segsum.launches,
-                "oracle_pair": oracle_pair.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"main path: nnz={t.nnz} invocations={invocations} wall={wall:.3f} s "
-        f"fits={fits} launches={launches} "
+    log(f"single-process path: nnz={t.nnz} invocations={invocations} "
+        f"wall={wall:.3f} s fits={fits} launches={launches} "
         f"max_memory_allocated={peak / 2**30:.3f} GiB")
-    if not all(np.isfinite(fits)) or not all(0.0 <= f <= 1.0 for f in fits):
-        raise AssertionError(f"fits not finite in [0, 1]: {fits}")
-    if any(b < a - 1e-3 for a, b in zip(fits, fits[1:])):
-        raise AssertionError(f"fits decrease by more than 1e-3: {fits}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    check_fits(fits, "hooi")
+    for name in ("kron_segsum", "oracle_pair"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 "single-process path")
     for n, F in enumerate(dec.factors):
         if tuple(F.shape) != (t.shape[n], CORE[n]) or \
                 not bool(torch.isfinite(F).all()):
@@ -311,7 +328,6 @@ def phase_profile(t) -> None:
     one sweep, core and fit), and the share of the wall time the device
     was busy."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.hooi import hooi
 
@@ -323,15 +339,7 @@ def phase_profile(t) -> None:
              device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = profile_rows(prof)
     busy = sum(r[0] for r in rows)
     log(f"profile of hooi(n_invocations=1): wall {wall * 1e3:.1f} ms, "
         f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%)")
@@ -381,6 +389,274 @@ def phase_timings(coords, values, factors, shape) -> dict:
     return out
 
 
+def check_fused(name: str, got, again, want, z_kron) -> float:
+    """kron_segsum_oracle's (Z, ZX) against the plain version; reruns
+    bitwise equal, Z bitwise equal to kron_segsum's."""
+    import torch
+
+    err = max(check(f"{name} Z", got[0], want[0], again[0]),
+              check(f"{name} ZX", got[1], want[1], again[1]))
+    if not torch.equal(got[0], z_kron):
+        raise AssertionError(f"{name}: Z differs from kron_segsum's")
+    return err
+
+
+def phase_fused_checks(coords, values, factors, shape) -> float:
+    import torch
+    from repro_torch.convert import device_coords
+    from repro_torch.core import hooi
+    from repro_torch.data.tensors import synth_tensor
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
+    from repro_torch.random import make_key
+
+    dev = coords.device
+    g = torch.Generator(device=dev).manual_seed(11)
+    E = min(CHECK_ELEMENTS, coords.shape[0])
+    err = 0.0
+    log(f"kron_segsum_oracle vs plain on the first {E} elements, panels "
+        f"s={FUSED_PANELS}, tolerance {TOL} x max|plain|; Z must equal "
+        "kron_segsum's bit for bit")
+    for mode in range(len(shape)):
+        rows, a, b = sorted_split(coords[:E], values[:E], factors, mode)
+        K = a.shape[1] * b.shape[1]
+        for prec in ("f32", "bf16"):
+            z_kron = kron_segsum(rows, a, b, shape[mode], precision=prec)
+            for s in FUSED_PANELS:
+                X = torch.randn((K, s), device=dev, generator=g)
+                err = max(err, check_fused(
+                    f"mode {mode} {prec} s={s}",
+                    kron_segsum_oracle(rows, a, b, shape[mode], X,
+                                       precision=prec),
+                    kron_segsum_oracle(rows, a, b, shape[mode], X,
+                                       precision=prec),
+                    ref.kron_segsum_oracle_ref(rows, a, b, shape[mode], X,
+                                               prec), z_kron))
+            del z_kron
+        del rows, a, b
+
+    t4 = synth_tensor(FOUR_MODE[0], FOUR_MODE[1], alphas=1.0, seed=1)
+    c4, v4 = device_coords(t4, dev)
+    f4 = hooi.random_factors(t4.shape, (10, 10, 10, 10), make_key(4), dev)
+    rows, a, b = sorted_split(c4, v4, f4, 0)
+    X = torch.randn((a.shape[1] * b.shape[1], 8), device=dev, generator=g)
+    err = max(err, check_fused(
+        f"4-mode K={a.shape[1] * b.shape[1]} s=8",
+        kron_segsum_oracle(rows, a, b, t4.shape[0], X),
+        kron_segsum_oracle(rows, a, b, t4.shape[0], X),
+        ref.kron_segsum_oracle_ref(rows, a, b, t4.shape[0], X),
+        kron_segsum(rows, a, b, t4.shape[0])))
+    del rows, a, b, c4, v4
+
+    E_hub, R_hub, share = HUB
+    rows = torch.randint(0, R_hub, (E_hub,), device=dev, generator=g)
+    rows[torch.rand(E_hub, device=dev, generator=g) < share] = R_hub // 3
+    rows = torch.sort(rows).values.to(torch.int32)
+    a = torch.randn((E_hub, 10), device=dev, generator=g)
+    b = torch.randn((E_hub, 10), device=dev, generator=g)
+    X = torch.randn((100, 8), device=dev, generator=g)
+    for prec in ("f32", "bf16"):
+        err = max(err, check_fused(
+            f"hub {prec} s=8",
+            kron_segsum_oracle(rows, a, b, R_hub, X, precision=prec),
+            kron_segsum_oracle(rows, a, b, R_hub, X, precision=prec),
+            ref.kron_segsum_oracle_ref(rows, a, b, R_hub, X, prec),
+            kron_segsum(rows, a, b, R_hub, precision=prec)))
+    torch.cuda.empty_cache()
+    return err
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
+    from repro_torch.kernels.oracle_fused import oracle_pair
+
+    return {"kron_segsum": kron_segsum.launches,
+            "kron_segsum_oracle": kron_segsum_oracle.launches,
+            "oracle_pair": oracle_pair.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
+    from repro_torch.kernels.oracle_fused import oracle_pair
+
+    kron_segsum.launches = kron_segsum_oracle.launches = 0
+    oracle_pair.launches = 0
+
+
+def check_fits(fits, what: str) -> None:
+    if not all(np.isfinite(fits)) or not all(0.0 <= f <= 1.0 for f in fits):
+        raise AssertionError(f"{what}: fits not finite in [0, 1]: {fits}")
+    if any(b < a - 1e-3 for a, b in zip(fits, fits[1:])):
+        raise AssertionError(f"{what}: fits decrease by more than 1e-3: "
+                             f"{fits}")
+
+
+def dist_kwargs() -> dict:
+    return dict(lanczos_block=DIST_BLOCK, fused_zbuild=True,
+                use_fused_oracle=True, seed=0, device=DEVICE)
+
+
+def phase_dist(t) -> dict:
+    """The distributed main path on both comm backends."""
+    import torch
+    from repro_torch.core.plan import plan
+    from repro_torch.distributed.dist_hooi import dist_hooi
+
+    t0 = time.perf_counter()
+    pl = plan(t, "lite", DIST_P, core_dims=CORE, path="auto")
+    build_s = time.perf_counter() - t0
+    log(f"dist plan: lite, P={DIST_P}, built on the host in {build_s:.1f} s; "
+        f"E_pad={[mp.E_pad for mp in pl.parts]} "
+        f"R_pad={[mp.R_pad for mp in pl.parts]} "
+        f"Lp={[mp.Lp for mp in pl.parts]} "
+        f"S_pad={[mp.S_pad for mp in pl.parts]}")
+    out = {"plan": pl, "plan_build_s": build_s, "runs": {}}
+    for path in ("liteopt", "baseline"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        dec, st = dist_hooi(t, CORE, DIST_P, scheme=pl, path=path,
+                            n_invocations=DIST_INVOCATIONS, **dist_kwargs())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steady = st.sweep_s[1:] or st.sweep_s
+        log(f"dist_hooi path={path} backends={st.comm_backends}: "
+            f"wall={wall:.3f} s sweeps={[round(x, 4) for x in st.sweep_s]} "
+            f"steady_s_per_sweep={float(np.mean(steady)):.4f} "
+            f"fits={st.fits} partition_build_s={st.partition_build_s:.3f} "
+            f"(plan built above in {build_s:.1f} s) z_passes={st.z_passes} "
+            f"lanczos_block={st.lanczos_block} launches={launches} "
+            f"max_memory_allocated={peak / 2**30:.3f} GiB")
+        check_fits(st.fits, f"dist_hooi {path}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"distributed path ({path})")
+        for n, F in enumerate(dec.factors):
+            if tuple(F.shape) != (t.shape[n], CORE[n]) or \
+                    not bool(torch.isfinite(F).all()):
+                raise AssertionError(f"dist factor {n} bad: "
+                                     f"{tuple(F.shape)}")
+        out["runs"][path] = {"stats": st, "launches": launches,
+                             "peak_bytes": peak, "wall_s": wall,
+                             "steady_s": float(np.mean(steady))}
+        out["factors"] = dec.factors
+        del dec
+    return out
+
+
+def phase_dist_small() -> None:
+    from repro_torch.data.tensors import synth_tensor
+    from repro_torch.distributed.dist_hooi import dist_hooi
+
+    shape, nnz, core = DIST_SMALL
+    t = synth_tensor(shape, nnz, alphas=(1.1, 1.0, 0.9), seed=3)
+    kw = dist_kwargs()
+    for path in ("liteopt", "baseline"):
+        _, gpu = dist_hooi(t, core, DIST_P, path=path, n_invocations=3, **kw)
+        kw_cpu = dict(kw, device="cpu")
+        _, cpu = dist_hooi(t, core, DIST_P, path=path, n_invocations=3,
+                           **kw_cpu)
+        diff = float(np.max(np.abs(np.subtract(gpu.fits, cpu.fits))))
+        log(f"small dist_hooi {path} card vs CPU: fits {gpu.fits} vs "
+            f"{cpu.fits}, max diff {diff:.2e} (tolerance 1e-4)")
+        if not diff <= 1e-4:
+            raise AssertionError(f"dist card and CPU fits differ by {diff}")
+
+
+def profile_rows(prof) -> list:
+    """(device ms, calls, name) per kernel, largest first."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def phase_dist_profile(t, pl) -> None:
+    """Device time by kernel over one invocation of the distributed path
+    (boundary backend; set-up, one sweep, core and fit)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.dist_hooi import dist_hooi
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, st = dist_hooi(t, CORE, DIST_P, scheme=pl, path="liteopt",
+                          n_invocations=1, **dist_kwargs())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = profile_rows(prof)
+    busy = sum(r[0] for r in rows)
+    log(f"profile of dist_hooi(liteopt, n_invocations=1): wall "
+        f"{wall * 1e3:.1f} ms (sweep {st.sweep_s[0] * 1e3:.1f} ms), device "
+        f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%)")
+    for ms, count, key in rows[:16]:
+        log(f"  {ms:9.3f} ms {count:5d}x  {key[:90]}")
+
+
+def fused_bound_ms(E: int, Ka: int, Kb: int, num_rows: int, nonempty: int,
+                   s: int) -> tuple[float, str]:
+    """Elements read once, Z and ZX written once, X read once; products for
+    every element and a ZX row for every row that holds elements."""
+    K = Ka * Kb
+    bytes_ = E * 4 * (1 + Ka + Kb) + num_rows * (K + s) * 4 + K * s * 4
+    flops = 2 * E * K + 2 * nonempty * K * s
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def phase_dist_timings(pl, factors) -> list:
+    """kron_segsum_oracle per call at the distributed shapes: each mode's
+    stacked partition (all ranks, one launch) with a width-8 panel."""
+    import torch
+    from repro_torch.core.lanczos import block_start_panel
+    from repro_torch.distributed.executor import upload_mode
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
+    from repro_torch.random import make_key
+
+    dev = torch.device(DEVICE)
+    out = []
+    for mode, mp in enumerate(pl.parts):
+        arrs = upload_mode(mp, dev)
+        a, b = ops._split_ab(arrs["coords"], arrs["values"], factors, mode)
+        rows = arrs["rows"]
+        del arrs
+        R = mp.P * mp.R_pad
+        E, Ka, Kb = a.shape[0], a.shape[1], b.shape[1]
+        X = block_start_panel(make_key(0), Ka * Kb, DIST_BLOCK, dev)
+        nonempty = int(torch.unique_consecutive(rows).numel())
+        ms = cuda_ms(lambda: kron_segsum_oracle(rows, a, b, R, X), reps=5)
+        two = cuda_ms(lambda: torch.matmul(kron_segsum(rows, a, b, R), X),
+                      reps=5)
+        plain = cuda_ms(lambda: ref.kron_segsum_oracle_ref(rows, a, b, R, X),
+                        reps=2)
+        bound, by = fused_bound_ms(E, Ka, Kb, R, nonempty, DIST_BLOCK)
+        log(f"kron_segsum_oracle mode {mode}: E={E} K={Ka * Kb} rows={R} "
+            f"(non-empty {nonempty}) s={DIST_BLOCK} ms={ms:.4f} "
+            f"kron_segsum+matmul_ms={two:.4f} plain_ms={plain:.4f} "
+            f"bound_ms={bound:.4f} ({by})")
+        out.append((ms, plain, bound, by, two))
+        del a, b, rows
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -420,7 +696,16 @@ def main() -> int:
     factors = hooi.random_factors(t.shape, CORE, make_key(0), dev)
 
     errs = phase_kernel_checks(coords, values, factors, t.shape)
+    errs["kron_segsum_oracle"] = phase_fused_checks(coords, values, factors,
+                                                    t.shape)
     del coords, values
+    torch.cuda.empty_cache()
+
+    dist = phase_dist(t)
+    phase_dist_small()
+    phase_dist_profile(t, dist["plan"])
+    fused_timing = phase_dist_timings(dist["plan"], dist["factors"])
+    del dist["factors"]
     torch.cuda.empty_cache()
 
     main = phase_main_path(t)
@@ -429,28 +714,42 @@ def main() -> int:
 
     coords, values = device_coords(t, dev)
     timing = phase_timings(coords, values, factors, t.shape)
-    sweeps = max(main["invocations"], 1)
-    log(f"launches per sweep: kron_segsum "
-        f"{main['launches']['kron_segsum'] / sweeps:g}, oracle_pair "
-        f"{main['launches']['oracle_pair'] / sweeps:g}")
+    timing["kron_segsum_oracle"] = fused_timing
+    run = dist["runs"]["liteopt"]
+    dist_sweeps = len(run["stats"].fits)
+    by_path = {
+        name: {"hooi": main["launches"].get(name, 0),
+               "dist_liteopt": dist["runs"]["liteopt"]["launches"][name],
+               "dist_baseline": dist["runs"]["baseline"]["launches"][name]}
+        for name in ("kron_segsum", "kron_segsum_oracle", "oracle_pair")}
+    log(f"launches by path: {by_path}; per sweep on dist liteopt: "
+        + ", ".join(f"{k} {v / dist_sweeps:g}"
+                    for k, v in run["launches"].items()))
 
     kernels = []
     for name, source, replaces in (
             ("kron_segsum", "src/repro_torch/kernels/csrc/kron_segsum.cu",
              "src/repro/kernels/kron_segsum.py:154"),
             ("oracle_pair", "src/repro_torch/kernels/csrc/oracle_pair.cu",
-             "src/repro/kernels/oracle_fused.py:56")):
+             "src/repro/kernels/oracle_fused.py:56"),
+            ("kron_segsum_oracle",
+             "src/repro_torch/kernels/csrc/kron_segsum.cu",
+             "src/repro/kernels/kron_segsum.py:289")):
         rows = timing[name]
         mean = lambda i: float(np.mean([r[i] for r in rows]))  # noqa: E731
         by = rows[int(np.argmax([r[2] for r in rows]))][3]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main["launches"][name],
-            "launches_per_sweep": main["launches"][name] / sweeps,
+            "replaces": replaces, "launches": run["launches"][name],
+            "launches_per_sweep": run["launches"][name] / dist_sweeps,
+            "launches_by_path": by_path[name],
             "max_abs_err": errs[name], "ms": mean(0), "plain_ms": mean(1),
             "bound_ms": mean(2), "bound_by": by,
             "library_ms": mean(4) if name == "oracle_pair" else None,
-        })
+        }
+        if name == "kron_segsum_oracle":
+            entry["kron_segsum_plus_matmul_ms"] = mean(4)
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Sparse tensor container in coordinate (COO) format.
 
 The port's own copy of the reference's host-side ``SparseTensor``
-(``src/repro/core/coo.py``), limited to what the single-process slice uses.
+(``src/repro/core/coo.py``), limited to what the port's paths use.
 It stays in numpy: generation and validation are host work, and the device
 copies are made at the entry point (``repro_torch.convert.device_coords``).
 A mode-n *slice* is the set of elements sharing the n-th coordinate.
@@ -10,6 +10,7 @@ A mode-n *slice* is the set of elements sharing the n-th coordinate.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 
@@ -68,6 +69,10 @@ class SparseTensor:
         """Cardinality |Slice_n^l| for every l in [0, L_n)."""
         return np.bincount(self.coords[:, mode], minlength=self.shape[mode])
 
+    def nonempty_slices(self, mode: int) -> np.ndarray:
+        """Indices l with |Slice_n^l| > 0."""
+        return np.nonzero(self.slice_sizes(mode))[0]
+
     def sorted_by_mode(self, mode: int) -> "SparseTensor":
         """Elements stably sorted by their mode-n coordinate."""
         order = np.argsort(self.coords[:, mode], kind="stable")
@@ -97,3 +102,23 @@ class SparseTensor:
         np.add.at(vals, inv, self.values)
         coords = np.stack(np.unravel_index(uniq, self.shape), axis=1)
         return SparseTensor(coords, vals, self.shape)
+
+    def fingerprint(self) -> str:
+        """Content hash of (shape, coords, values), the reference's.
+
+        Memoized on the instance (coords/values are treated as immutable).
+        It keys the plan cache (``repro_torch.core.plan``).
+        """
+        cached = getattr(self, "_fingerprint", None)
+        if cached is not None:
+            return cached
+        h = hashlib.sha1()
+        h.update(repr(self.shape).encode())
+        h.update(np.ascontiguousarray(self.coords).tobytes())
+        h.update(np.ascontiguousarray(self.values).tobytes())
+        fp = h.hexdigest()
+        object.__setattr__(self, "_fingerprint", fp)
+        return fp
+
+    def take(self, idx: np.ndarray) -> "SparseTensor":
+        return SparseTensor(self.coords[idx], self.values[idx], self.shape)

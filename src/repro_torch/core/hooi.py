@@ -9,7 +9,8 @@ The port of ``src/repro/core/hooi.py``; the procedure of paper Fig 2:
 
 ``hooi`` drives ``engine.sweep.run_hooi_sweeps`` with ``engine.steps``'s
 local mode step. On the card the Z-builds (the core's included) run the
-CUDA ``kron_segsum`` kernel and, with ``use_fused_oracle=True``, the
+CUDA ``kron_segsum`` kernel, with ``fused_zbuild=True`` the mode steps run
+``kron_segsum_oracle`` instead, and with ``use_fused_oracle=True`` the
 Lanczos products run the CUDA ``oracle_pair`` kernel.
 
 Signatures follow the reference where the arguments mean the same. The
@@ -17,8 +18,10 @@ reference's ``use_kernels`` is absent: here the device chooses the Z-build
 (kernel on the card, plain PyTorch on the CPU). Added: ``device`` (default
 the card), ``draw`` (the random-draw seam, ``repro_torch.random``),
 ``on_sweep``, and ``init`` also accepting explicit initial factors.
-Knobs the slice does not carry raise ``NotImplementedError`` naming their
-ROADMAP item.
+``lanczos_block`` (block Lanczos) and ``fused_zbuild`` are the reference's;
+knobs the port does not carry yet (sketch warm starts, objectives other
+than tucker, ``precision="auto"``) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch import convert, envknobs
+from repro_torch import convert
 from repro_torch.core.coo import SparseTensor
 from repro_torch.device import full_precision_matmul, resolve_device
 from repro_torch.random import Draw, Key, make_key
@@ -78,35 +81,42 @@ def hosvd_init(t: SparseTensor, core_dims: Sequence[int],
     return factors
 
 
-def _slice_knobs(precision, lanczos_block, fused_zbuild, warm_start,
-                 objective) -> str:
-    """Resolve the knobs this slice carries; refuse the others loudly.
+def _knobs(precision, lanczos_block, fused_zbuild, warm_start,
+           objective) -> tuple[str, int, bool]:
+    """Resolve the knobs through the engine's resolvers, which the
+    distributed executor uses too; refuse the ones the port does not carry.
 
-    Returns the resolved Z-build precision.
+    Returns (Z-build precision, requested panel width, fused Z-build).
     """
-    from repro_torch.engine.zbuild import resolve_precision
+    from repro_torch.engine.objective import resolve_objective
+    from repro_torch.engine.oracle import (resolve_block_size,
+                                           resolve_warm_start)
+    from repro_torch.engine.zbuild import (resolve_fused_zbuild,
+                                           resolve_precision)
 
-    block = envknobs.lanczos_block() if lanczos_block is None \
-        else int(lanczos_block)
-    if block is not None and block != 1:
-        raise NotImplementedError(
-            f"lanczos_block={block}: block Lanczos is ROADMAP Queue A item 7")
-    fz = envknobs.fused_zbuild() if fused_zbuild is None else fused_zbuild
-    if fz:
-        raise NotImplementedError(
-            "fused_zbuild: the fused kron_segsum_oracle kernel is ROADMAP "
-            "Queue A item 7 / Queue B item 3")
-    ws = envknobs.warm_start() if warm_start is None else warm_start
-    if ws not in (None, "none"):
-        raise NotImplementedError(
-            f"warm_start={ws!r}: sketched warm starts are ROADMAP Queue A "
-            "item 8")
-    obj = envknobs.objective() if objective is None else objective
-    if obj not in (None, "tucker"):
-        raise NotImplementedError(
-            f"objective={obj!r}: objectives other than tucker are ROADMAP "
-            "Queue A item 9")
-    return resolve_precision(precision)
+    resolve_warm_start(warm_start)
+    resolve_objective(objective)
+    return (resolve_precision(precision), resolve_block_size(lanczos_block),
+            resolve_fused_zbuild(fused_zbuild))
+
+
+def _mode_knobs(factors, n: int, L: int, block: int, fused_zbuild: bool,
+                lanczos_iters: int | None) -> dict:
+    """One mode's panel width (clamped to its rank cap), fused flag and
+    iteration budget: the reference's arithmetic, which ``_mode_specs`` of
+    the distributed executor repeats."""
+    from repro_torch.core.lanczos import effective_block_size
+
+    k_n = int(factors[n].shape[1])
+    khat = 1
+    for j, f in enumerate(factors):
+        if j != n:
+            khat *= int(f.shape[1])
+    s_eff = effective_block_size(k_n, L, khat, block)
+    niter = lanczos_iters
+    if niter is not None and (fused_zbuild or s_eff > 1):
+        niter = -(-int(niter) // s_eff)  # vector budget -> block count
+    return dict(niter=niter, block_size=s_eff, fused_zbuild=fused_zbuild)
 
 
 def hooi_invocation(
@@ -132,16 +142,17 @@ def hooi_invocation(
 
     dev = resolve_device(device)
     full_precision_matmul()
-    prec = _slice_knobs(precision, lanczos_block, fused_zbuild, warm_start,
-                        objective)
+    prec, blk, fz = _knobs(precision, lanczos_block, fused_zbuild,
+                           warm_start, objective)
     coords, values = convert.device_coords(t, dev)
     new_factors = list(factors)
     track = timings if timings is not None else {}
     for n in range(t.ndim):
         new_factors[n] = local_mode_step(
             coords, values, new_factors, n, t.shape[n], key.fold_in(n),
-            niter=lanczos_iters, use_fused_oracle=bool(use_fused_oracle),
-            precision=prec, timings=track)
+            use_fused_oracle=bool(use_fused_oracle), precision=prec,
+            timings=track, **_mode_knobs(new_factors, n, t.shape[n], blk,
+                                         fz, lanczos_iters))
     return new_factors
 
 
@@ -184,10 +195,12 @@ def hooi(
     key chain), ``"hosvd"``, or a sequence of initial factor matrices.
     ``use_fused_oracle`` routes the Lanczos products through the
     ``oracle_pair`` kernel. ``precision`` is ``"f32"``/``"bf16"``/None
-    (None honors ``REPRO_PRECISION``). ``lanczos_block``, ``fused_zbuild``,
-    ``warm_start`` and ``objective`` accept only their default meaning in
-    this slice. ``metrics_out`` is accepted for signature parity: the
-    tucker objective adds no per-sweep metrics.
+    (None honors ``REPRO_PRECISION``). ``lanczos_block`` is the requested
+    Lanczos panel width (None honors ``REPRO_LANCZOS_BLOCK``), clamped per
+    mode; ``fused_zbuild`` fuses the Z-build with the first panel product
+    (None honors ``REPRO_FUSED_ZBUILD``). ``warm_start`` and ``objective``
+    accept only their default meaning. ``metrics_out`` is accepted for
+    signature parity: the tucker objective adds no per-sweep metrics.
 
     ``draw`` replaces the default seeded draws (``repro_torch.random``);
     ``on_sweep(it, seconds, fit)`` observes every sweep.
@@ -195,8 +208,8 @@ def hooi(
     del metrics_out  # the tucker objective records nothing there
     dev = resolve_device(device)
     full_precision_matmul()
-    prec = _slice_knobs(precision, lanczos_block, fused_zbuild, warm_start,
-                        objective)
+    prec, blk, fz = _knobs(precision, lanczos_block, fused_zbuild,
+                           warm_start, objective)
     fused = bool(use_fused_oracle)
 
     key = make_key(seed, draw)
@@ -221,8 +234,9 @@ def hooi(
 
     def mode_step(n, facs, kk):
         return local_mode_step(coords, values, facs, n, t.shape[n], kk,
-                               niter=lanczos_iters, use_fused_oracle=fused,
-                               precision=prec)
+                               use_fused_oracle=fused, precision=prec,
+                               **_mode_knobs(facs, n, t.shape[n], blk, fz,
+                                             lanczos_iters))
 
     def report(it, seconds, fit):
         if verbose:

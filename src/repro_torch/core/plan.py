@@ -1,0 +1,409 @@
+"""PartitionPlan: distribution plans and the real-time ``auto`` selector.
+
+The port's own copy of the reference's ``core/plan.py`` (pure numpy), limited
+to what the distributed main path uses:
+
+  * ``PartitionPlan`` bundles what host-side partitioning produces for one
+    (tensor, scheme, P) triple: the ``Scheme``, the padded per-mode
+    ``ModePartition`` arrays, the §4 ``SchemeMetrics`` and an analytic
+    ``PlanCost``.
+  * ``plan(t, scheme, P)`` is the single constructor. Plans are cached
+    in-process with LRU eviction, keyed by tensor *content*
+    (``SparseTensor.fingerprint()``), so a second run on the same tensor
+    skips all host-side partitioning.
+  * ``scheme="auto"`` builds the cheap candidates (``lite``, ``coarse``,
+    ``medium``), scores each with the cost model and returns the
+    predicted-fastest plan.
+
+Plan files (``save``/``load``) and the streaming helpers
+(``extend_scheme``, ``refresh_decision``, ``rescore_plan``) are ROADMAP
+Queue A item 12.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Sequence
+
+import numpy as np
+
+from .calibrate import current_cost_model_state
+from .coo import SparseTensor
+from .distribution import Scheme, build_scheme
+from .metrics import SchemeMetrics, scheme_metrics
+
+__all__ = [
+    "PlanCost",
+    "PartitionPlan",
+    "plan",
+    "AUTO_CANDIDATES",
+    "plan_cache_stats",
+    "plan_cache_clear",
+    "last_plan_call_cache_hit",
+]
+
+# Candidates for real-time selection: the schemes whose construction is cheap
+# enough to run inline before every decomposition (paper Fig 16).
+AUTO_CANDIDATES = ("lite", "coarse", "medium")
+
+@dataclasses.dataclass(frozen=True)
+class PlanCost:
+    """Modeled per-invocation wall time of one HOOI sweep under a plan.
+
+    Deterministic function of the §4 metrics and the current ``CostModel`` —
+    measured (noisy) build time is kept separately on
+    ``PartitionPlan.build_s`` so selection is reproducible.
+    """
+
+    flops_s: float  # critical-path TTM+SVD flops / rates (= ttm_s + svd_s)
+    comm_s: float  # per-device collective bytes (comm_model + fm volume) / BW
+    comm_bytes: float
+    path: str  # collective path ("baseline" | "liteopt" | "auto") costed
+    # per-phase split under the CostModel's (possibly calibrated) phase
+    # rates; defaults keep pre-phase plan files loadable
+    ttm_s: float = 0.0  # bottleneck-rank TTM (Z build) seconds
+    svd_s: float = 0.0  # bottleneck-rank Lanczos/SVD seconds
+    # per-mode comm backend the engine will run ("local"|"psum"|"boundary");
+    # defaults keep pre-engine plan files loadable
+    mode_backends: tuple = ()
+    # modeled comm seconds per whole-plan backend choice — what lets the
+    # auto selector score comm backends, not just schemes
+    backend_s: dict | None = None
+
+    @property
+    def total_s(self) -> float:
+        return self.flops_s + self.comm_s
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PartitionPlan:
+    """Everything host-side partitioning produces, ready for the runtime.
+
+    ``eq=False``: plans compare by identity — the cache contract is that a
+    hit returns the *same object*, so sharing is observable and device-side
+    uploads keyed on the plan (``HooiExecutor``) can be reused.
+    """
+
+    scheme: Scheme
+    parts: tuple  # tuple[ModePartition, ...] (distributed.partition)
+    metrics: SchemeMetrics
+    cost: PlanCost
+    core_dims: tuple[int, ...]
+    P: int
+    build_s: float  # measured host-side construction wall time
+    cache_key: tuple | None = None
+    # auto only: modeled total_s per candidate name (selection transparency)
+    candidates: dict | None = None
+    # content hash of the tensor this plan was built for (save/load guard).
+    # For plans built from a StreamingTensor snapshot this is the stream's
+    # *chain* fingerprint (incremental hash of the append history) — equally
+    # content-identifying, O(batch) to maintain.
+    fingerprint: str | None = None
+    # stream version the fingerprint corresponds to (None for one-shot
+    # tensors); lets persisted plans say *which* state of a stream they
+    # describe
+    stream_version: int | None = None
+    # partitions built with geometric (pow2) pad quantization — part of the
+    # compiled-shape contract, so it must survive save/load
+    pad_geometric: bool = False
+    # sweep objective this plan partitions and scores ("tucker" |
+    # "completion" | "nn"): a completion plan describes the objective's
+    # *training view* of the tensor, and the cost includes the objective's
+    # extra FLOP terms — running it under another objective would be wrong
+    # twice, so executors and load() refuse a mismatch
+    objective: str = "tucker"
+
+    @property
+    def name(self) -> str:
+        return self.scheme.name
+
+    @property
+    def nmodes(self) -> int:
+        return self.scheme.nmodes
+
+    def comm(self, mode: int) -> dict:
+        """Per-mode analytic comm model (same dict dist_hooi reports)."""
+        from repro_torch.distributed.partition import comm_model
+
+        n = mode
+        K = self.core_dims
+        khat = int(np.prod([K[j] for j in range(len(K)) if j != n]))
+        return comm_model(self.parts[n], khat, 2 * int(K[n]))
+
+
+# ---------------------------------------------------------------- cost model
+_PATH_BACKEND = {"baseline": "psum", "liteopt": "boundary"}
+
+
+def _plan_cost(
+    parts: Sequence, metrics: SchemeMetrics, core_dims: Sequence[int],
+    path: str, model, objective=None
+) -> PlanCost:
+    from repro_torch.distributed.partition import comm_model
+    from repro_torch.engine.comm import backend_comm_bytes, cheaper_backend
+
+    N = len(core_dims)
+    P = int(parts[0].P) if parts else 1
+    per_mode = []
+    for n in range(N):
+        khat = int(np.prod([core_dims[j] for j in range(N) if j != n]))
+        per_mode.append(comm_model(parts[n], khat, 2 * int(core_dims[n])))
+    # factor-matrix rows move once per mode step regardless of backend (§4.2)
+    fm_bytes = metrics.fm_volume * 4.0
+
+    # score every comm backend (per-mode bytes at its — possibly
+    # calibrated — per-backend bandwidth), so the auto selector can compare
+    # backends, not just schemes
+    backend_s = {
+        b: sum(model.comm_seconds(backend_comm_bytes(b, c), b)
+               for c in per_mode)
+        + model.comm_seconds(fm_bytes)
+        for b in ("psum", "boundary")
+    }
+    if P == 1:
+        # the engine's collective-free local backend: only fm traffic
+        backend_s["local"] = model.comm_seconds(fm_bytes)
+        mode_backends = ("local",) * N
+    elif path == "auto":
+        # per-mode selection from the partition metrics — the one rule the
+        # engine's resolve_backend also applies at run time
+        mode_backends = tuple(cheaper_backend(c, model) for c in per_mode)
+    else:
+        mode_backends = (_PATH_BACKEND[path],) * N
+    comm_bytes = fm_bytes + sum(
+        backend_comm_bytes(b, c) for c, b in zip(per_mode, mode_backends))
+    comm_s = model.comm_seconds(fm_bytes) + sum(
+        model.comm_seconds(backend_comm_bytes(b, c), b)
+        for c, b in zip(per_mode, mode_backends) if b != "local")
+    # per-phase scoring: with default (un-calibrated) phase rates this
+    # reduces exactly to critical_path_flops / flop_rate. Objectives that
+    # do extra per-mode factor work (NN-ADMM refine) fold their FLOPs into
+    # the svd phase — same phase of the sweep, same rate.
+    extra = 0.0
+    if objective is not None:
+        extra = float(objective.extra_svd_flops(metrics, core_dims, model))
+    ttm_s, svd_s = model.phase_seconds(metrics.ttm_flops_max,
+                                       metrics.svd_flops_max + extra)
+    return PlanCost(
+        flops_s=ttm_s + svd_s,
+        comm_s=comm_s,
+        comm_bytes=comm_bytes,
+        path=path,
+        ttm_s=ttm_s,
+        svd_s=svd_s,
+        mode_backends=mode_backends,
+        backend_s=backend_s,
+    )
+
+
+# --------------------------------------------------------------------- cache
+_CACHE: dict[tuple, PartitionPlan] = {}  # insertion-ordered; LRU eviction
+_CACHE_LOCK = threading.Lock()
+_STATS = {"hits": 0, "misses": 0}
+CACHE_MAX_ENTRIES = 128  # plans hold padded per-device arrays — bound them
+
+
+def plan_cache_stats() -> dict:
+    with _CACHE_LOCK:
+        return dict(_STATS, size=len(_CACHE))
+
+
+# per-thread record of the last plan() call's cache outcome: the global
+# hit/miss counters are shared, so "did MY call hit?" cannot be answered by
+# differencing them once concurrent submitters build plans in parallel
+# (another thread's miss in the window would misreport this thread's hit)
+_TLS = threading.local()
+
+
+def last_plan_call_cache_hit() -> bool:
+    """Whether the calling thread's most recent ``plan()`` was a cache hit.
+
+    Thread-local, so it stays correct under concurrent plan builds — this
+    is what ``HooiExecutor.run`` reports as ``plan_cache_hit``.
+    """
+    return bool(getattr(_TLS, "cache_hit", False))
+
+
+def plan_cache_clear() -> None:
+    with _CACHE_LOCK:
+        _CACHE.clear()
+        _STATS["hits"] = 0
+        _STATS["misses"] = 0
+
+
+def _freeze_kw(kw: dict) -> tuple:
+    return tuple(sorted((k, repr(v)) for k, v in kw.items()))
+
+
+# --------------------------------------------------------------- constructor
+def _build_plan(
+    t: SparseTensor,
+    scheme: Scheme,
+    core_dims: tuple[int, ...],
+    path: str,
+    build_s: float,
+    cache_key: tuple | None,
+    model,
+    pad_geometric: bool = False,
+    objective=None,
+    metrics: SchemeMetrics | None = None,
+) -> PartitionPlan:
+    from repro_torch.distributed.partition import make_mode_partitions
+
+    t0 = time.perf_counter()
+    parts = make_mode_partitions(t, scheme, pad_geometric=pad_geometric)
+    if metrics is None:
+        metrics = scheme_metrics(t, scheme, core_dims)
+    cost = _plan_cost(parts, metrics, core_dims, path, model,
+                      objective=objective)
+    return PartitionPlan(
+        scheme=scheme,
+        parts=parts,
+        metrics=metrics,
+        cost=cost,
+        core_dims=core_dims,
+        P=scheme.P,
+        build_s=build_s + (time.perf_counter() - t0),
+        cache_key=cache_key,
+        fingerprint=t.fingerprint(),
+        stream_version=getattr(t, "_stream_version", None),
+        pad_geometric=pad_geometric,
+        objective=objective.name if objective is not None else "tucker",
+    )
+
+
+def plan(
+    t: SparseTensor,
+    scheme: str | Scheme = "auto",
+    P: int | None = None,
+    *,
+    core_dims: Sequence[int] | None = None,
+    path: str = "liteopt",
+    seed: int = 0,
+    use_cache: bool = True,
+    pad_geometric: bool = False,
+    objective=None,
+    metrics: SchemeMetrics | None = None,
+    **scheme_kw,
+) -> PartitionPlan:
+    """Single constructor for ``PartitionPlan``.
+
+    ``scheme`` may be a scheme name (including ``"auto"``) or a prebuilt
+    ``Scheme`` (bypasses the scheme constructor; still builds partitions,
+    metrics and cost — cached by the scheme's *content*, so equal-content
+    schemes share one plan). For a prebuilt ``Scheme``, ``P`` must be
+    omitted or agree with ``scheme.P``; for names it defaults to 8.
+
+    ``core_dims`` defaults to the paper's K=10 per mode; it parameterizes the
+    FLOP/comm cost model and the metrics, not the policies themselves.
+
+    ``pad_geometric`` quantizes the padded partition dimensions to powers of
+    two (streaming: compiled shapes survive small appends); it participates
+    in the cache key since it changes the parts' shapes.
+
+    ``objective`` selects the sweep objective the plan is built *for* (None
+    honors ``REPRO_OBJECTIVE``, default tucker; a name or an
+    ``engine.objective.Objective``). The objective's ``prepare_tensor`` view
+    is applied first — a completion plan partitions the training view, not
+    the raw tensor — its parameters join the cache key, its name is stamped
+    on the plan (executors refuse a mismatch), and its extra FLOP terms
+    enter the cost the auto selector scores.
+
+    ``metrics`` (prebuilt-``Scheme`` path only) supplies precomputed
+    ``SchemeMetrics``, skipping the O(nnz·N²) recompute — the streaming
+    scheduler maintains them incrementally across appends
+    (the reference's ``MetricsExtender``, not ported yet).
+    """
+    if path not in ("baseline", "liteopt", "auto"):
+        raise ValueError(f"unknown path {path!r}")
+    from repro_torch.engine.objective import resolve_objective
+
+    obj = resolve_objective(objective)
+    t = obj.prepare_tensor(t)
+    N = t.ndim
+    core = tuple(int(k) for k in (core_dims or (10,) * N))
+    if len(core) != N:
+        raise ValueError(f"core_dims has {len(core)} entries for {N} modes")
+    # the cost model parameterizes PlanCost: a recalibration must not reuse
+    # plans scored under the old rates (model and version read in one
+    # snapshot, so the cached cost always matches its key's version)
+    model, mv = current_cost_model_state()
+
+    if isinstance(scheme, Scheme):
+        if P is not None and P != scheme.P:
+            raise ValueError(f"scheme built for P={scheme.P}, asked for {P}")
+        # key on scheme *content*, never id(): a GC'd scheme's id can be
+        # reused by CPython, which would hand a different scheme the old
+        # plan; equal-content schemes sharing one cached plan is correct
+        key = ("prebuilt", scheme.content_key(), t.fingerprint(), core, path,
+               mv, pad_geometric, obj.cache_token())
+        return _cached(key, use_cache,
+                       lambda: _build_plan(t, scheme, core, path, 0.0, key,
+                                           model, pad_geometric,
+                                           objective=obj, metrics=metrics))
+    if metrics is not None:
+        raise ValueError("prebuilt metrics are only valid with a prebuilt "
+                         "Scheme — named schemes rebuild their policies, "
+                         "which would invalidate them")
+    P = 8 if P is None else int(P)
+
+    name = scheme.lower()
+    key = (t.fingerprint(), name, P, core, path, seed, _freeze_kw(scheme_kw),
+           mv, pad_geometric, obj.cache_token())
+
+    if name == "auto":
+        def make_auto() -> PartitionPlan:
+            t0 = time.perf_counter()
+            cands = {
+                c: plan(t, c, P, core_dims=core, path=path, seed=seed,
+                        use_cache=use_cache, pad_geometric=pad_geometric,
+                        objective=obj, **scheme_kw)
+                for c in AUTO_CANDIDATES
+            }
+            best = min(cands, key=lambda c: cands[c].cost.total_s)
+            return dataclasses.replace(
+                cands[best],
+                cache_key=key,
+                build_s=time.perf_counter() - t0,
+                candidates={c: p.cost.total_s for c, p in cands.items()},
+            )
+
+        return _cached(key, use_cache, make_auto)
+
+    def make() -> PartitionPlan:
+        t0 = time.perf_counter()
+        s = build_scheme(t, name, P, seed=seed, **scheme_kw)
+        return _build_plan(t, s, core, path, time.perf_counter() - t0, key,
+                           model, pad_geometric, objective=obj)
+
+    return _cached(key, use_cache, make)
+
+
+def _cached(key: tuple, use_cache: bool, make) -> PartitionPlan:
+    if use_cache:
+        with _CACHE_LOCK:
+            hit = _CACHE.get(key)
+            if hit is not None:
+                _STATS["hits"] += 1
+                # LRU: a hit moves the entry to the back of the eviction order
+                _CACHE[key] = _CACHE.pop(key)
+                _TLS.cache_hit = True
+                return hit
+    p = make()
+    # set AFTER make(): auto's candidate sub-calls overwrite the flag, the
+    # outermost call's outcome must win for last_plan_call_cache_hit()
+    _TLS.cache_hit = False
+    if use_cache:
+        with _CACHE_LOCK:
+            _STATS["misses"] += 1
+            # a concurrent builder may have won the race: keep its object so
+            # the identity contract (same key -> same plan) holds
+            existing = _CACHE.get(key)
+            if existing is not None:
+                return existing
+            _CACHE[key] = p
+            while len(_CACHE) > CACHE_MAX_ENTRIES:
+                _CACHE.pop(next(iter(_CACHE)))
+    return p

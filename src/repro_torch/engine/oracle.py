@@ -1,6 +1,7 @@
 """Oracle stage: how a mode step answers the Lanczos products for its Z.
 
-The port of ``src/repro/engine/oracle.py``'s vector path. The SVD component
+The port of ``src/repro/engine/oracle.py`` without its sketch warm start
+(ROADMAP Queue A item 8). The SVD component
 only consumes Z through ``Z @ x`` and ``Zᵀ @ y`` (paper §3):
 
 * ``fused=False`` — plain ``torch.matmul`` products, as the reference leaves
@@ -10,6 +11,10 @@ only consumes Z through ``Z @ x`` and ``Zᵀ @ y`` (paper §3):
   asks for one product and leaves the other operand out (None). The
   reference passes a zero companion instead and discards its product; the
   results are the same, and either way it is one pass of Z per product.
+
+``stacked_products`` gives the same two products for the distributed
+step's stacked ranks; ``solve_oracle``/``solve_oracle_block`` run the
+vector and the block Lanczos drivers.
 """
 
 from __future__ import annotations
@@ -18,11 +23,50 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.lanczos import gk_bidiag, svd_from_bidiag
+from repro_torch import envknobs
+from repro_torch.core.lanczos import (gk_bidiag, gk_block_bidiag,
+                                      svd_from_bidiag)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.random import Key
 
-__all__ = ["z_products", "solve_oracle"]
+__all__ = ["z_products", "stacked_products", "solve_oracle",
+           "solve_oracle_block", "resolve_block_size", "resolve_warm_start",
+           "count_z_passes"]
+
+
+def resolve_block_size(block_size: int | None) -> int:
+    """Lanczos panel width (1 = the vector driver). ``None`` honors
+    ``REPRO_LANCZOS_BLOCK``, else 1. A request: mode steps clamp it with
+    ``effective_block_size``."""
+    if block_size is None:
+        block_size = envknobs.lanczos_block() or 1
+    block_size = int(block_size)
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    return block_size
+
+
+def resolve_warm_start(warm_start: str | None) -> str:
+    """Oracle warm start: ``None`` honors ``REPRO_WARM_START``, else
+    ``"none"``, the only one the port has."""
+    if warm_start is None:
+        warm_start = envknobs.warm_start() or "none"
+    if warm_start not in envknobs.WARM_STARTS:
+        raise ValueError(f"unknown warm_start {warm_start!r} "
+                         f"(expected one of {envknobs.WARM_STARTS})")
+    if warm_start != "none":
+        raise NotImplementedError(
+            f"warm_start={warm_start!r}: sketched warm starts are ROADMAP "
+            "Queue A item 8")
+    return warm_start
+
+
+def count_z_passes(niter: int, fused_zbuild: bool = False) -> int:
+    """Counted passes over Z for one mode step: one write at build time and
+    two reads (``Z @ x``, ``Zᵀ @ y``) per oracle iteration, block
+    iterations under block Lanczos; the fused build serves the first
+    ``Z @ V_1`` and saves one read."""
+    return 1 + 2 * int(niter) - (1 if fused_zbuild else 0)
 
 
 def z_products(Z: torch.Tensor, *,
@@ -43,6 +87,26 @@ def z_products(Z: torch.Tensor, *,
     return matvec, rmatvec
 
 
+def stacked_products(Z: torch.Tensor, P: int, *,
+                     fused: bool = False) -> tuple[Callable, Callable]:
+    """(zmv, zrmv) for the distributed step's stacked ranks.
+
+    ``Z`` is the ranks' local Z matrices stacked as ``(P*R_pad, K_hat)``.
+    ``zmv(x)`` is one product over all ranks, ``(P*R_pad[, s])``;
+    ``zrmv(y)`` takes ``(P, R_pad[, s])`` and returns each rank's
+    ``Z_pᵀ y_p`` as ``(P, K_hat[, s])`` (the comm space sums them over the
+    ranks).
+    """
+    matvec = z_products(Z, fused=fused)[0]
+    per_rank = [z_products(Zp, fused=fused)[1]
+                for Zp in Z.view(P, -1, Z.shape[1]).unbind(0)]
+
+    def rmatvec(y):
+        return torch.stack([r(yp) for r, yp in zip(per_rank, y.unbind(0))])
+
+    return matvec, rmatvec
+
+
 def solve_oracle(
     matvec: Callable,
     rmatvec: Callable,
@@ -59,4 +123,28 @@ def solve_oracle(
     small-SVD projection."""
     U, B = gk_bidiag(matvec, rmatvec, dim_u, ncols, niter, key, axis=axis,
                      device=device)
+    return svd_from_bidiag(U, B, k, key, axis=axis)
+
+
+def solve_oracle_block(
+    matvec: Callable,
+    rmatvec: Callable,
+    dim_u: int,
+    ncols: int,
+    k: int,
+    niter: int,
+    block_size: int,
+    key: Key,
+    axis: int | None = None,
+    first_panel: torch.Tensor | None = None,
+    first_product: torch.Tensor | None = None,
+    *,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-Lanczos counterpart of ``solve_oracle``: ``niter`` counts
+    block iterations; ``first_panel``/``first_product`` come from the fused
+    Z-build stage."""
+    U, B = gk_block_bidiag(matvec, rmatvec, dim_u, ncols, niter, block_size,
+                           key, axis=axis, first_panel=first_panel,
+                           first_product=first_product, device=device)
     return svd_from_bidiag(U, B, k, key, axis=axis)

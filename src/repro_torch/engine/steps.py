@@ -1,9 +1,19 @@
 """Mode steps composed from the engine stages.
 
-The port of ``src/repro/engine/steps.py::local_mode_step``, vector branch:
-a HOOI mode step is the **Z-build** (``engine.zbuild``) followed by the
-**oracle** (``engine.oracle``: the Z products and the one Lanczos body),
-with the identity partition. This is what ``repro_torch.core.hooi`` runs.
+The port of ``src/repro/engine/steps.py`` without its sketch branches
+(ROADMAP Queue A item 8). A HOOI mode step is the **Z-build**
+(``engine.zbuild``) followed by the **oracle** (``engine.oracle``: the Z
+products and the Lanczos body) and, for the distributed step, the **comm
+backend** (``engine.comm``):
+
+* ``make_mode_step_fn`` — one distributed mode step over the P ranks,
+  stacked along a leading dimension on one device (the reference wraps the
+  same function in ``shard_map``);
+* ``local_mode_step`` — the same composition with the identity partition
+  and no comm space: what ``repro_torch.core.hooi`` runs.
+
+Both run the vector driver, or the block driver when the panel is wider
+than 1 or the fused Z-build is on.
 """
 
 from __future__ import annotations
@@ -13,18 +23,80 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.lanczos import lanczos_niter
+from repro_torch.core.lanczos import (block_start_panel, gk_block_bidiag,
+                                      lanczos_niter, svd_from_bidiag)
 from repro_torch.random import Key
 
-from .oracle import solve_oracle, z_products
-from .zbuild import build_local_z
+from .comm import make_comm_space
+from .oracle import (solve_oracle, solve_oracle_block, stacked_products,
+                     z_products)
+from .zbuild import build_local_z, build_local_z_oracle
 
-__all__ = ["local_mode_step"]
+__all__ = ["make_mode_step_fn", "local_mode_step"]
 
 
 def _sync(t: torch.Tensor) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
+
+
+def _khat(factors: Sequence[torch.Tensor], mode: int) -> int:
+    Khat = 1
+    for j, f in enumerate(factors):
+        if j != mode:
+            Khat *= int(f.shape[1])
+    return Khat
+
+
+def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int):
+    """One distributed mode step over the stacked ranks.
+
+    ``ms`` is the static partition signature (mode, R_pad, Lp, P,
+    use_fused, precision, block_size, fused_zbuild); ``backend`` one of
+    ``engine.comm``'s names; ``niter`` counts block iterations when the
+    block driver runs.
+
+    ``fn(arrs, factors, key) -> (F, S)``: ``arrs`` holds the partition's
+    elements flattened over the ranks (``coords`` (P*E_pad, N), ``values``,
+    and ``rows``, each rank's local row ids offset by ``p*R_pad``) and the
+    comm space's gather maps. Each rank's elements are sorted by local row
+    and its padding elements carry its last real row, so the concatenation
+    is sorted: one Z-build launch serves all ranks and gives their local Z
+    matrices stacked as ``(P*R_pad, K_hat)``. ``F`` is ``(P, Lp, K_n)``,
+    each rank's owned rows in relabelled order.
+    """
+    P, R_pad, mode = ms["P"], ms["R_pad"], ms["mode"]
+    precision = ms.get("precision", "f32")
+    block_size = int(ms.get("block_size", 1))
+    fused_zbuild = bool(ms.get("fused_zbuild", False))
+
+    def fn(arrs: dict, factors: Sequence[torch.Tensor], key: Key):
+        Khat = _khat(factors, mode)
+        dev = arrs["values"].device
+        first_panel = ZV1 = None
+        if fused_zbuild:
+            first_panel = block_start_panel(key, Khat, block_size, dev)
+            Z, ZV1 = build_local_z_oracle(
+                arrs["coords"], arrs["values"], arrs["rows"], factors, mode,
+                P * R_pad, first_panel, precision=precision)
+        else:
+            Z = build_local_z(arrs["coords"], arrs["values"], arrs["rows"],
+                              factors, mode, P * R_pad, precision=precision)
+        zmv, zrmv = stacked_products(Z, P, fused=ms.get("use_fused", False))
+        space = make_comm_space(backend, ms, arrs, zmv, zrmv)
+        if fused_zbuild or block_size > 1:
+            first_product = None if ZV1 is None else space.wrap_matvec_out(ZV1)
+            left, S = solve_oracle_block(
+                space.matvec, space.rmatvec, space.dim_u, Khat, K_n, niter,
+                block_size, key, axis=space.axis, first_panel=first_panel,
+                first_product=first_product, device=dev)
+        else:
+            left, S = solve_oracle(space.matvec, space.rmatvec, space.dim_u,
+                                   Khat, K_n, niter, key, axis=space.axis,
+                                   device=dev)
+        return space.finalize(left), S
+
+    return fn
 
 
 def local_mode_step(
@@ -39,33 +111,53 @@ def local_mode_step(
     niter: int | None = None,
     use_fused_oracle: bool = False,
     precision: str = "f32",
+    block_size: int = 1,
+    fused_zbuild: bool = False,
     timings: dict | None = None,
 ) -> torch.Tensor:
     """One single-process mode step; returns the refined factor (num_rows, k).
 
+    ``block_size`` is the effective (clamped) panel width; ``block_size >
+    1`` or ``fused_zbuild`` runs the block driver, as the distributed step
+    does, so ``hooi`` and ``dist_hooi(P=1)`` walk the same Krylov space.
     ``timings`` (optional) accumulates blocking per-phase wall times under
-    ``"ttm"``/``"svd"``. ``niter`` is clamped as the reference's
-    ``lanczos_bidiag`` clamps it.
+    ``"ttm"``/``"svd"``. A given ``niter`` is clamped as the reference's
+    ``lanczos_bidiag`` clamps it on the vector driver and taken as it is (in
+    block iterations) on the block driver.
     """
     k = int(factors[mode].shape[1]) if k is None else int(k)
-    Khat = 1
-    for j, f in enumerate(factors):
-        if j != mode:
-            Khat *= int(f.shape[1])
+    Khat = _khat(factors, mode)
+    block_size = int(block_size)
+    blockish = fused_zbuild or block_size > 1
     t0 = time.perf_counter()
-    Z = build_local_z(coords, values, coords[:, mode], factors, mode,
-                      num_rows, sorted_rows=False, precision=precision)
+    first_panel = first_product = None
+    if fused_zbuild:
+        first_panel = block_start_panel(key, Khat, block_size, coords.device)
+        Z, first_product = build_local_z_oracle(
+            coords, values, coords[:, mode], factors, mode, num_rows,
+            first_panel, sorted_rows=False, precision=precision)
+    else:
+        Z = build_local_z(coords, values, coords[:, mode], factors, mode,
+                          num_rows, sorted_rows=False, precision=precision)
     if timings is not None:
         _sync(Z)
     t1 = time.perf_counter()
     matvec, rmatvec = z_products(Z, fused=use_fused_oracle)
     if niter is None:
-        niter = lanczos_niter(k, num_rows, Khat)
-    else:
+        niter = lanczos_niter(k, num_rows, Khat,
+                              block_size if blockish else 1)
+    elif not blockish:
         niter = max(int(min(niter, num_rows, Khat)),
                     min(k, num_rows, Khat))
-    left, _S = solve_oracle(matvec, rmatvec, num_rows, Khat, k, niter, key,
-                            device=Z.device)
+    if blockish:
+        U, B = gk_block_bidiag(matvec, rmatvec, num_rows, Khat, niter,
+                               block_size, key, axis=None,
+                               first_panel=first_panel,
+                               first_product=first_product, device=Z.device)
+        left, _S = svd_from_bidiag(U, B, k, key, axis=None)
+    else:
+        left, _S = solve_oracle(matvec, rmatvec, num_rows, Khat, k, niter,
+                                key, device=Z.device)
     if timings is not None:
         _sync(left)
         t2 = time.perf_counter()

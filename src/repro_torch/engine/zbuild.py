@@ -5,6 +5,8 @@ materializes the (local) penultimate matrix
 ``Z = segment_sum(kron_contributions, rows)``. There is one route, through
 ``kernels.ops``: the CUDA ``kron_segsum`` kernel for tensors on the card,
 its plain version for tensors on the CPU. The device decides, not a flag.
+``build_local_z_oracle`` is the fused stage: the ``kron_segsum_oracle``
+kernel returns ``(Z, Z @ X)`` for the first block-Lanczos panel X.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 from repro_torch import envknobs
 from repro_torch.kernels import ops as kernel_ops
 
-__all__ = ["build_local_z", "resolve_precision", "PRECISIONS"]
+__all__ = ["build_local_z", "build_local_z_oracle", "resolve_precision",
+           "resolve_fused_zbuild", "PRECISIONS"]
 
 PRECISIONS = envknobs.PRECISIONS
 
@@ -38,6 +41,14 @@ def resolve_precision(precision: str | None) -> str:
         raise ValueError(f"unknown precision {precision!r} "
                          f"(expected one of {PRECISIONS + ('auto', None)})")
     return envknobs.precision() or "f32"
+
+
+def resolve_fused_zbuild(fused_zbuild: bool | None) -> bool:
+    """Fused Z-build→first-oracle decision: ``None`` honors
+    ``REPRO_FUSED_ZBUILD=1``, else off."""
+    if fused_zbuild is None:
+        return envknobs.fused_zbuild()
+    return bool(fused_zbuild)
 
 
 def build_local_z(
@@ -62,4 +73,28 @@ def build_local_z(
     fn = (kernel_ops.penultimate_sorted if sorted_rows
           else kernel_ops.penultimate_local)
     return fn(coords, values, local_rows, factors, mode, num_rows,
+              precision=precision)
+
+
+def build_local_z_oracle(
+    coords: torch.Tensor,
+    values: torch.Tensor,
+    local_rows: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    num_rows: int,
+    X: torch.Tensor,  # (K_hat, s) first oracle panel
+    *,
+    sorted_rows: bool = True,
+    precision: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused stage: ``(Z, Z @ X)`` in one pass over the elements.
+
+    ``sorted_rows=False`` sorts first and then runs the same fused kernel
+    (the reference builds Z and multiplies separately there; the result is
+    the same up to f32 rounding).
+    """
+    fn = (kernel_ops.penultimate_sorted_oracle if sorted_rows
+          else kernel_ops.penultimate_local_oracle)
+    return fn(coords, values, local_rows, factors, mode, num_rows, X,
               precision=precision)

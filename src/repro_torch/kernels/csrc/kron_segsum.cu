@@ -42,6 +42,29 @@
 //
 // Preconditions (arranged by the callers, which sort by row on the device):
 // rows sorted ascending; a and b row-major float32; E >= 1.
+//
+// kron_segsum_oracle: (Z, Z @ X) for a (Ka*Kb, s) float32 panel X.
+//
+// Replaces the TPU kernel src/repro/kernels/kron_segsum.py::kron_segsum_oracle
+// (pallas_call at :356, body _kernel_fused at :228), which multiplied the
+// VMEM-resident Z tile into the first block-Lanczos panel before Z left the
+// core, so the first Lanczos product cost no second read of Z from HBM.
+//
+// What bounds it here is kron_segsum's: the element bytes. Z itself is small
+// (at most 28,818 x 100 floats, 11.5 MB, at nell-2 widths), so the product
+// is a few microseconds of work; what matters is that it does not slow the
+// element walk.
+//
+// Design: the launcher runs kron_segsum's two kernels unchanged, so Z is
+// bitwise equal to kron_segsum's, and then zx_kernel, one warp per row of Z.
+// Z was written a moment before and fits in the H100's 50 MB L2 at these
+// widths, so the product should find it there rather than in device memory:
+// the saving the TPU kernel made with VMEM. (Computing a row's ZX in the
+// chunk walk's registers, where the row finishes, was measured to slow the
+// walk itself by about 5% at nell-2 size: the epilogue in the loop changes
+// how the loop is compiled.) Each lane sums its columns in column order and
+// a fixed-order __shfl_xor butterfly sums the warp, so reruns are bitwise
+// equal; no atomics. ZX is f32 from the f32 Z under both precisions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,6 +192,42 @@ __global__ void fixup_kernel(const int* __restrict__ rows,
   z[(long long)r * K + j] = acc;
 }
 
+// ZX[r, j] = sum_k Z[r, k] * X[k, j]: one warp per row, up to kPanel panel
+// columns at a time. Lane l sums the columns l, l + 32, ... of the row in
+// order (coalesced reads of Z, X from the read-only cache) into one
+// register per panel column, then the warp adds its lanes by a fixed
+// butterfly.
+constexpr int kPanel = 8;
+
+__global__ void zx_kernel(const float* __restrict__ z,
+                          const float* __restrict__ x,
+                          float* __restrict__ zx, int num_rows, int K, int s) {
+  const long long r = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (r >= num_rows) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const float* zr = z + r * K;
+  for (int j0 = 0; j0 < s; j0 += kPanel) {
+    const int nj = min(kPanel, s - j0);
+    float acc[kPanel];
+#pragma unroll
+    for (int jj = 0; jj < kPanel; ++jj) acc[jj] = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float zv = zr[k];
+      const float* xk = x + (long long)k * s + j0;
+#pragma unroll
+      for (int jj = 0; jj < kPanel; ++jj)
+        if (jj < nj) acc[jj] += zv * __ldg(xk + jj);
+    }
+#pragma unroll
+    for (int jj = 0; jj < kPanel; ++jj) {
+      float v = acc[jj];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == jj && jj < nj) zx[r * s + j0 + jj] = v;
+    }
+  }
+}
+
 }  // namespace
 
 // Launch both kernels on `stream`. `part` holds 2 * ceil(E / chunk) * Ka * Kb
@@ -201,5 +260,25 @@ extern "C" int kron_segsum_launch(const int* rows, const float* a,
 
   dim3 grid2((unsigned)(2 * nchunks), (unsigned)col_tiles);
   fixup_kernel<<<grid2, 128, 0, st>>>(rows, part, z, E, num_rows, K, chunk, 2 * nchunks);
+  return (int)cudaGetLastError();
+}
+
+// (Z, Z @ X) on `stream`: kron_segsum_launch, then the row products. `x` is
+// (Ka*Kb, s) row-major and `zx` (num_rows, s); `z` zeroed and `part` as for
+// kron_segsum_launch. Returns the CUDA error code of the launches (0 = ok).
+extern "C" int kron_segsum_oracle_launch(const int* rows, const float* a,
+                                         const float* b, float* z, float* part,
+                                         const float* x, float* zx,
+                                         long long E, int num_rows, int Ka,
+                                         int Kb, int chunk, int s, int bf16,
+                                         void* stream) {
+  if (s <= 0 || num_rows < 0) return (int)cudaErrorInvalidValue;
+  const int err = kron_segsum_launch(rows, a, b, z, part, E, num_rows, Ka, Kb,
+                                     chunk, bf16, stream);
+  if (err != 0 || num_rows == 0) return err;
+  const long long blocks = ((long long)num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  zx_kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, 0,
+              static_cast<cudaStream_t>(stream)>>>(z, x, zx, num_rows, Ka * Kb, s);
   return (int)cudaGetLastError();
 }

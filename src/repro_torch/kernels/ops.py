@@ -6,6 +6,8 @@ Public entry points used by the rest of the port:
     counterpart of ``repro_torch.core.ttm.penultimate``;
   * ``penultimate_local`` / ``penultimate_sorted`` — the same for arbitrary
     and for pre-sorted row ids;
+  * ``penultimate_local_oracle`` / ``penultimate_sorted_oracle`` — the fused
+    build with the first oracle panel product, ``(Z, Z @ X)``;
   * ``oracle_pair(Z, x, y)`` — the fused Lanczos oracle.
 
 The wrappers prepare the kernel's layout (fold the leading Kronecker levels
@@ -21,10 +23,11 @@ from typing import Sequence
 
 import torch
 
-from .kron_segsum import kron_segsum
+from .kron_segsum import kron_segsum, kron_segsum_oracle
 from .oracle_fused import oracle_pair as _oracle_pair_kernel
 
 __all__ = ["penultimate", "penultimate_local", "penultimate_sorted",
+           "penultimate_local_oracle", "penultimate_sorted_oracle",
            "oracle_pair", "split_kron_dims"]
 
 
@@ -94,6 +97,45 @@ def penultimate_local(
     return penultimate_sorted(
         coords[order], values[order], local_rows[order], factors, mode,
         num_local_rows, precision=precision)
+
+
+def penultimate_sorted_oracle(
+    coords: torch.Tensor,
+    values: torch.Tensor,
+    local_rows: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    num_local_rows: int,
+    X: torch.Tensor,  # (K_hat, s) first oracle panel
+    *,
+    precision: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused ``(Z, Z @ X)`` for elements already sorted by ``local_rows``:
+    one ``kron_segsum_oracle`` launch on the card."""
+    a, b = _split_ab(coords, values, factors, mode)
+    return kron_segsum_oracle(local_rows.to(torch.int32).contiguous(),
+                              a.to(torch.float32), b.to(torch.float32),
+                              num_local_rows, X.contiguous(),
+                              precision=precision)
+
+
+def penultimate_local_oracle(
+    coords: torch.Tensor,
+    values: torch.Tensor,
+    local_rows: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    num_local_rows: int,
+    X: torch.Tensor,
+    *,
+    precision: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``penultimate_sorted_oracle`` for row ids in any order (stable sort
+    on the tensors' device first, as ``penultimate_local``)."""
+    order = torch.argsort(local_rows, stable=True)
+    return penultimate_sorted_oracle(
+        coords[order], values[order], local_rows[order], factors, mode,
+        num_local_rows, X, precision=precision)
 
 
 def penultimate(

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["kron_segsum_ref", "oracle_pair_ref"]
+__all__ = ["kron_segsum_ref", "kron_segsum_oracle_ref", "oracle_pair_ref"]
 
 
 def kron_segsum_ref(
@@ -35,6 +35,19 @@ def kron_segsum_ref(
     out = torch.zeros((num_rows, Ka * Kb), dtype=torch.float32,
                       device=contribs.device)
     return out.index_add_(0, rows.long(), contribs)
+
+
+def kron_segsum_oracle_ref(
+    rows: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    num_rows: int,
+    X: torch.Tensor,  # (Ka*Kb, s)
+    precision: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused build + first oracle product: ``(Z, Z @ X)``."""
+    Z = kron_segsum_ref(rows, a, b, num_rows, precision)
+    return Z, Z @ X
 
 
 def oracle_pair_ref(

@@ -18,9 +18,10 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import hooi, ttm
+from repro_torch.distributed.dist_hooi import dist_hooi
 from repro_torch.data.tensors import synth_tensor
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.kron_segsum import kron_segsum
+from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
 from repro_torch.kernels.oracle_fused import oracle_pair
 from repro_torch.random import make_key
 
@@ -146,3 +147,71 @@ def test_core_on_card_matches_plain(cuda):
     Z = ops.penultimate(coords, values, factors, 2, t.shape[2])
     Zp = ttm.penultimate(coords, values, factors, 2, t.shape[2])
     assert _rel_err(Z, Zp) <= 2e-4
+
+
+@pytest.mark.parametrize("E,Ka,Kb,R,hub,s", [
+    (1, 1, 1, 1, 0.0, 1),
+    (7, 3, 5, 4, 0.0, 4),
+    (5000, 10, 10, 300, 0.0, 8),
+    (3000, 2, 257, 1, 0.0, 8),     # one row across three chunks
+    (20000, 4, 25, 64, 0.6, 8),    # hub row spanning many chunks
+    (4000, 100, 10, 500, 0.0, 8),  # K_hat = 1000 (4-mode, K = 10)
+    (2048, 3, 3, 4096, 0.0, 64),   # a wide panel, sparse rows
+])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_kron_segsum_oracle_kernel_matches_plain(cuda, E, Ka, Kb, R, hub, s,
+                                                 precision):
+    rows, a, b, R = _sorted_inputs(0, E, Ka, Kb, R, hub)
+    g = torch.Generator(device="cpu").manual_seed(E + s)
+    X = torch.randn((Ka * Kb, s), generator=g).to(cuda)
+    before = kron_segsum_oracle.launches
+    got = kron_segsum_oracle(rows, a, b, R, X, precision=precision)
+    again = kron_segsum_oracle(rows, a, b, R, X, precision=precision)
+    torch.cuda.synchronize()
+    assert kron_segsum_oracle.launches == before + 2
+    want = ref.kron_segsum_oracle_ref(rows, a, b, R, X, precision)
+    for g_, w, a_ in zip(got, want, again):
+        assert _rel_err(g_, w) <= 2e-4
+        assert torch.equal(g_, a_)
+    # the same chunk walk: Z is kron_segsum's bit for bit
+    assert torch.equal(got[0], kron_segsum(rows, a, b, R,
+                                           precision=precision))
+
+
+def test_kron_segsum_oracle_kernel_empty_and_checks(cuda):
+    rows, a, b, R = _sorted_inputs(1, 100, 3, 4, 20)
+    X = torch.ones((12, 2), device=cuda)
+    before = kron_segsum_oracle.launches
+    z, zx = kron_segsum_oracle(rows[:0], a[:0], b[:0], R, X)
+    assert kron_segsum_oracle.launches == before
+    assert torch.equal(z, torch.zeros((R, 12), device=cuda))
+    assert torch.equal(zx, torch.zeros((R, 2), device=cuda))
+    with pytest.raises(ValueError):
+        kron_segsum_oracle(rows, a, b, R, X.t().contiguous().t())
+    with pytest.raises(TypeError):
+        kron_segsum_oracle(rows, a, b, R, X.cpu())
+    with pytest.raises(ValueError):
+        kron_segsum_oracle(rows, a, b, R, torch.ones((12, 0), device=cuda))
+
+
+@pytest.mark.parametrize("path", ["liteopt", "baseline"])
+def test_dist_hooi_on_card_matches_cpu(cuda, path):
+    """The distributed path on the card (all three kernels) against the
+    port's plain CPU path: same plan, seed and draws."""
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    kw = dict(path=path, n_invocations=3, seed=2, lanczos_block=4,
+              fused_zbuild=True, use_fused_oracle=True)
+    counts = (kron_segsum.launches, kron_segsum_oracle.launches,
+              oracle_pair.launches)
+    dec_g, st_g = dist_hooi(t, (5, 5, 5), 4, **kw)
+    assert kron_segsum.launches > counts[0]
+    assert kron_segsum_oracle.launches == counts[1] + 9  # 3 modes x 3 sweeps
+    assert oracle_pair.launches > counts[2]
+    dec_c, st_c = dist_hooi(t, (5, 5, 5), 4, device="cpu", **kw)
+    np.testing.assert_allclose(st_g.fits, st_c.fits, rtol=0, atol=1e-4)
+    for F, Fc in zip(dec_g.factors, dec_c.factors):
+        F, Fc = F.cpu().numpy(), Fc.numpy()
+        np.testing.assert_allclose(F @ F.T, Fc @ Fc.T, atol=1e-3)
+    # a rerun on the card is bitwise equal: no float atomics anywhere
+    _, st_again = dist_hooi(t, (5, 5, 5), 4, **kw)
+    assert st_again.fits == st_g.fits

@@ -191,7 +191,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 
 
 @pytest.mark.parametrize("kw", [
-    dict(lanczos_block=2), dict(fused_zbuild=True),
     dict(warm_start="sketch"), dict(warm_start="auto"),
     dict(objective="nn"), dict(objective="completion"),
     dict(precision="auto"),
@@ -204,7 +203,6 @@ def test_out_of_slice_knobs_refuse(kw, small_tensor):
 
 
 @pytest.mark.parametrize("var,value", [
-    ("REPRO_LANCZOS_BLOCK", "4"), ("REPRO_FUSED_ZBUILD", "1"),
     ("REPRO_WARM_START", "sketch"), ("REPRO_OBJECTIVE", "nn"),
 ])
 def test_out_of_slice_env_knobs_refuse(monkeypatch, var, value,
@@ -227,3 +225,53 @@ def test_precision_env_knob_is_read(monkeypatch, small_tensor):
     monkeypatch.setenv("REPRO_PRECISION", "fp8")
     with pytest.raises(ValueError, match="REPRO_PRECISION"):
         port.hooi(t, (3, 3, 3), n_invocations=1, device="cpu")
+
+
+BLOCK_KNOBS = {"block2": dict(lanczos_block=2),
+               "block4": dict(lanczos_block=4),
+               "fused": dict(fused_zbuild=True),
+               "block4_fused": dict(lanczos_block=4, fused_zbuild=True)}
+
+
+@pytest.mark.parametrize("knobs", sorted(BLOCK_KNOBS))
+@pytest.mark.parametrize("fixture", ["lowrank_tensor", "skewed_tensor"])
+def test_block_and_fused_knobs_match_reference(request, fixture, knobs):
+    """``lanczos_block`` and ``fused_zbuild`` run the block driver and the
+    fused Z-build, and give the reference's block and fused ``hooi``."""
+    t = request.getfixturevalue(fixture)
+    core = CORE[fixture]
+    kw = BLOCK_KNOBS[knobs]
+    ref_dec, ref_fits = ref_hooi(t, core, n_invocations=3, seed=0, **kw)
+    init = ref_random_factors(t.shape, core, jax.random.PRNGKey(0))
+    dec, fits = port.hooi(
+        convert.sparse_tensor(t.coords, t.values, t.shape), core,
+        n_invocations=3, seed=0, init=[np.asarray(f) for f in init],
+        draw=jax_draws(0), device="cpu", **kw)
+    assert_fits_match(fits, ref_fits)
+    assert_core_energy_matches(t, dec.core, ref_dec.core)
+    assert_subspaces_match(dec.factors, ref_dec.factors)
+
+
+@pytest.mark.parametrize("var,value,kw", [
+    ("REPRO_LANCZOS_BLOCK", "4", dict(lanczos_block=4)),
+    ("REPRO_FUSED_ZBUILD", "1", dict(fused_zbuild=True)),
+])
+def test_block_and_fused_env_knobs_are_read(monkeypatch, var, value, kw,
+                                            lowrank_tensor):
+    """The environment variables mean what the arguments mean, in the port
+    and in the reference alike."""
+    t = lowrank_tensor
+    pt = convert.sparse_tensor(t.coords, t.values, t.shape)
+    init = [np.asarray(f) for f in ref_random_factors(
+        t.shape, (2, 2, 2), jax.random.PRNGKey(0))]
+    _, want = port.hooi(pt, (2, 2, 2), n_invocations=2, seed=0, init=init,
+                        draw=jax_draws(0), device="cpu", **kw)
+    monkeypatch.setenv(var, value)
+    _, got = port.hooi(pt, (2, 2, 2), n_invocations=2, seed=0, init=init,
+                       draw=jax_draws(0), device="cpu")
+    assert got == want
+    _, ref_fits = ref_hooi(t, (2, 2, 2), n_invocations=2, seed=0)
+    assert_fits_match(got, ref_fits)
+    monkeypatch.setenv(var, "x")
+    with pytest.raises(ValueError, match=var):
+        port.hooi(pt, (2, 2, 2), n_invocations=1, device="cpu")

@@ -13,7 +13,9 @@ installed JAX (``jax.experimental.pallas.load`` no longer exists, so the
 reference's own ``test_kron_segsum_*`` fail there too); the ``kron_segsum``
 twins therefore hold the port against the reference's plain
 ``repro.kernels.ref.kron_segsum_ref``, the function that kernel is tested
-against.
+against. The same holds for the fused ``kron_segsum_oracle``: its twins use
+``repro.kernels.ref.kron_segsum_oracle_ref``, within 1e-5 of the largest
+output.
 """
 
 import jax
@@ -29,7 +31,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as jax_ref
 from repro.kernels.oracle_fused import oracle_pair as pallas_oracle_pair
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.kron_segsum import kron_segsum
+from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
 from repro_torch.kernels.oracle_fused import oracle_pair
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -292,3 +294,95 @@ def test_split_kron_dims_matches_split_ab():
         a, b = ops._split_ab(coords, values, tf, mode)
         assert (a.shape[1], b.shape[1]) == ops.split_kron_dims(core, mode)
         assert (a.shape[1], b.shape[1]) == ref_ops.split_kron_dims(core, mode)
+
+
+# ------------------------------------------------------- kron_segsum_oracle
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("s", [1, 4, 8])
+@pytest.mark.parametrize("E,Ka,Kb,R", [
+    (7, 3, 5, 4),
+    (300, 4, 130, 50),     # Kb > 128
+    (1000, 10, 10, 300),   # paper-like: K=10 3-D (K_hat=100)
+    (515, 2, 257, 1),      # all elements in one row
+    (400, 100, 10, 60),    # K_hat = 1000 (4-mode, K = 10)
+])
+def test_kron_segsum_oracle_matches_ref(E, Ka, Kb, R, s, precision):
+    rows, a, b, R = _mk(3, E, Ka, Kb, R)
+    X = np.random.default_rng(s).standard_normal((Ka * Kb, s)).astype(
+        np.float32)
+    got = kron_segsum_oracle(torch.from_numpy(rows), torch.from_numpy(a),
+                             torch.from_numpy(b), R, torch.from_numpy(X),
+                             precision=precision)
+    want = jax_ref.kron_segsum_oracle_ref(
+        jnp.asarray(rows), jnp.asarray(a), jnp.asarray(b), R, jnp.asarray(X),
+        precision=precision)
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert g.shape == w.shape and g.dtype == np.float32
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-5 * max(np.abs(w).max(), 1e-30))
+
+
+def test_kron_segsum_oracle_z_is_kron_segsum():
+    """The plain fused version returns kron_segsum's Z and, exactly, its
+    product with the panel."""
+    rows, a, b, R = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                     for x in _mk(5, 500, 6, 7, 80))
+    X = torch.randn((42, 3), generator=torch.Generator().manual_seed(0))
+    z, zx = kron_segsum_oracle(rows, a, b, R, X)
+    assert torch.equal(z, kron_segsum(rows, a, b, R))
+    assert torch.equal(zx, z @ X)
+
+
+def test_kron_segsum_oracle_wrapper_checks():
+    rows, a, b, R = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                     for x in _mk(1, 20, 3, 4, 10))
+    X = torch.ones((12, 2))
+    with pytest.raises(ValueError):
+        kron_segsum_oracle(rows, a, b, R, torch.ones((11, 2)))
+    with pytest.raises(ValueError):
+        kron_segsum_oracle(rows, a, b, R, torch.ones(12))
+    with pytest.raises(ValueError):
+        kron_segsum_oracle(rows, a, b, R, torch.ones((12, 0)))
+    with pytest.raises(TypeError):
+        kron_segsum_oracle(rows, a, b, R, X.double())
+    with pytest.raises(TypeError):
+        kron_segsum_oracle(rows.long(), a, b, R, X)
+    with pytest.raises(ValueError):
+        kron_segsum_oracle(rows, a, b, R, X, precision="fp8")
+    before = kron_segsum_oracle.launches
+    z, zx = kron_segsum_oracle(rows[:0], a[:0], b[:0], R, X)
+    assert torch.equal(z, torch.zeros((R, 12)))
+    assert torch.equal(zx, torch.zeros((R, 2)))
+    kron_segsum_oracle(rows, a, b, R, X)
+    assert kron_segsum_oracle.launches == before  # the plain version
+
+
+@pytest.mark.parametrize("N,mode", [(3, 0), (3, 2), (4, 1)])
+def test_penultimate_oracle_matches_reference(N, mode):
+    """Fused ``(Z, Z @ X)`` through ``ops`` against the reference's
+    ``penultimate_sorted_oracle`` on its plain path, for sorted rows and,
+    through a sort, for rows in any order."""
+    rng = np.random.default_rng(11)
+    shape = tuple(int(L) for L in rng.integers(5, 12, N))
+    nnz = 150
+    coords = np.stack([rng.integers(0, L, nnz) for L in shape], 1)
+    values = rng.standard_normal(nnz).astype(np.float32)
+    jf, tf = _factors(shape, tuple([3] * N), 0)
+    X = rng.standard_normal((3 ** (N - 1), 4)).astype(np.float32)
+    order = np.argsort(coords[:, mode], kind="stable")
+    cs = coords[order].astype(np.int32)
+    want = ref_ops.penultimate_sorted_oracle(
+        jnp.asarray(cs), jnp.asarray(values[order]), jnp.asarray(cs[:, mode]),
+        jf, mode, shape[mode], jnp.asarray(X), use_kernel=False)
+    got = ops.penultimate_sorted_oracle(
+        torch.from_numpy(cs), torch.from_numpy(values[order]),
+        torch.from_numpy(cs[:, mode]), tf, mode, shape[mode],
+        torch.from_numpy(X))
+    got_any = ops.penultimate_local_oracle(
+        torch.from_numpy(coords.astype(np.int32)), torch.from_numpy(values),
+        torch.from_numpy(coords[:, mode].astype(np.int32)), tf, mode,
+        shape[mode], torch.from_numpy(X))
+    for g, ga, w in zip(got, got_any, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+        assert torch.equal(g, ga)
