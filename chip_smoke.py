@@ -11,7 +11,9 @@ Phases, each fatal on failure (nothing is caught):
 3. kernels against their plain PyTorch versions on the card:
    ``kron_segsum`` on the first 8M elements of the main-path tensor sorted
    by each mode's rows (f32 and bf16), an empty input, a 4-mode K̂ = 1000
-   case and a hub case with 30% of the elements in one row;
+   case and a hub case with 30% of the elements in one row, each in the
+   row form (the TPU function's signature) and, bitwise equal to it, in the
+   gather form the main path calls (factor rows gathered in the kernel);
    ``oracle_pair`` on the main path's Z with s = 1 and s = 8, both halves
    and each half alone (as the Lanczos loop calls it); each also rerun and
    required bitwise equal;
@@ -23,12 +25,16 @@ Phases, each fatal on failure (nothing is caught):
    against the port's plain CPU path;
 5. where a sweep's time goes: ``torch.profiler`` over one more invocation
    of that path, device time by kernel and the device's busy share;
-6. timings at that path's shapes, against each kernel's bound; for
-   ``oracle_pair`` the path's calls, one half at a time;
+6. timings at that path's shapes, against each kernel's bound:
+   ``kron_segsum``'s gather form against ``_split_ab`` plus the row form
+   (what the path paid before) and the row form alone; ``oracle_pair`` per
+   main-path call (one half), as call time back to back and as device time
+   (the profiler's kernel sum), beside one ``torch.matmul``;
 7. ``kron_segsum_oracle`` against its plain version: the first 8M elements
    of the main-path tensor sorted by each mode's rows, f32 and bf16,
-   panels of s = 1, 4 and 8, the 4-mode K̂ = 1000 case and the hub case;
-   reruns bitwise equal and Z bitwise equal to ``kron_segsum``'s;
+   panels of s = 1, 4 and 8 (the gather form too at s = 8), the 4-mode
+   K̂ = 1000 case and the hub case; reruns bitwise equal and Z bitwise
+   equal to ``kron_segsum``'s;
 8. the distributed path: ``repro_torch.distributed.dist_hooi.dist_hooi`` on
    the same tensor over a Lite plan for P = 4 ranks stacked on the card
    (the plan is built once on the host, costed for ``path="auto"``), with
@@ -36,9 +42,13 @@ Phases, each fatal on failure (nothing is caught):
    invocations, on ``path="liteopt"`` (boundary) and ``path="baseline"``
    (psum), each with every kernel's launch count read around it; then a
    small tensor on the card against the CPU, a ``torch.profiler`` pass over
-   one invocation, and ``kron_segsum_oracle`` timed at the distributed
-   shapes against its bound, its plain version and ``kron_segsum`` plus
-   one ``torch.matmul``.
+   one invocation; at the distributed shapes (each mode's padded stacked
+   partition) the gather form of ``kron_segsum_oracle`` checked bitwise
+   against the row form and timed against its bound, the row form,
+   ``_split_ab`` plus the row form, its plain version and ``kron_segsum``
+   plus one ``torch.matmul``; and the stacked ``oracle_pair`` (P = 4,
+   s = 8) checked against its plain version and bitwise against P single
+   calls, timed against P single calls plus ``torch.stack``.
 
 The distributed phases (7, 8) run right after the kernel checks (3); when
 the run is late, the single-process path is cut to one invocation (never
@@ -103,6 +113,15 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def clocks_line() -> str:
+    """The card's SM clock, its maximum and the power draw right now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean device time of ``fn()`` in ms, by CUDA events over ``reps``."""
     import torch
@@ -159,15 +178,86 @@ def oracle_half_bound_ms(R: int, K: int, s: int) -> tuple[float, str]:
         else "operations"
 
 
-def sorted_split(coords, values, factors, mode):
-    """The kernel's inputs for one mode: elements sorted by row, (a, b)."""
+def gather_bound_ms(E: int, N: int, Ka: int, Kb: int, num_rows: int,
+                    factor_rows: int, gathered_a: bool = True
+                    ) -> tuple[float, str]:
+    """The gather form: per element its row id, value (when a is gathered)
+    and N coordinates, read once; the factors (or a, for N >= 4) read once
+    and Z written once; Ka*Kb products and Ka value products per element."""
+    per_elem = 4 * (1 + N) + (4 if gathered_a else 4 * Ka)
+    bytes_ = E * per_elem + factor_rows * 4 + num_rows * Ka * Kb * 4
+    flops = 2 * E * Ka * Kb + (E * Ka if gathered_a else 0)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def factor_rows_read(factors, mode) -> int:
+    """Floats of the factors the gather form reads (all but the mode's)."""
+    return sum(int(f.numel()) for j, f in enumerate(factors) if j != mode)
+
+
+def device_ms(fn, reps: int, match: str | None = None) -> float:
+    """Mean device time of ``fn()`` in ms: the kernels' own time summed by
+    ``torch.profiler`` over ``reps`` calls (those whose name holds
+    ``match``, or all), so host time and launch gaps are left out."""
     import torch
-    from repro_torch.kernels import ops
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = profile_rows(prof)
+    total = sum(ms for ms, _, key in rows if match is None or match in key)
+    if total <= 0:
+        raise AssertionError(f"profiler saw no device time for {match}")
+    return total / reps
+
+
+def sorted_elements(coords, values, mode):
+    """Elements sorted by the mode's rows: (rows, coords, values)."""
+    import torch
 
     order = torch.argsort(coords[:, mode], stable=True)
     c = coords[order]
-    a, b = ops._split_ab(c, values[order], factors, mode)
-    return c[:, mode].contiguous(), a, b
+    return c[:, mode].contiguous(), c, values[order]
+
+
+def check_gather(name, rows, c, v, factors, mode, R, prec, z_row,
+                 X=None, zx_row=None) -> float:
+    """The gather form (as the main path calls it) against its plain
+    version, rerun bitwise, and bitwise equal to the row form's Z (and
+    ZX) on the host's ``_split_ab`` operands."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    def run():
+        if X is None:
+            return ops.penultimate_sorted(c, v, rows, factors, mode, R,
+                                          precision=prec)
+        return ops.penultimate_sorted_oracle(c, v, rows, factors, mode, R,
+                                             X, precision=prec)
+
+    got, again = run(), run()
+    if X is not None:
+        (got, gx), (again, ax) = got, again
+    a, b = ops._split_ab(c, v, factors, mode)
+    want = ref.kron_segsum_ref(rows, a, b, R, prec)
+    del a, b
+    err = check(f"gather {name}", got, want, again)
+    if not torch.equal(got, z_row):
+        raise AssertionError(f"gather {name}: Z differs from the row form's")
+    if X is not None:
+        err = max(err, check(f"gather {name} ZX", gx, want @ X, ax))
+        if not torch.equal(gx, zx_row):
+            raise AssertionError(f"gather {name}: ZX differs from the row "
+                                 "form's")
+    log(f"  gather {name}: Z bitwise equal to the row form's"
+        + ("" if X is None else ", ZX too"))
+    return err
 
 
 def phase_kernel_checks(coords, values, factors, shape) -> dict:
@@ -186,15 +276,18 @@ def phase_kernel_checks(coords, values, factors, shape) -> dict:
     log(f"kron_segsum vs plain on the first {E} elements, tolerance "
         f"{TOL} x max|plain| (summation order)")
     for mode in range(len(shape)):
-        rows, a, b = sorted_split(coords[:E], values[:E], factors, mode)
+        rows, c, v = sorted_elements(coords[:E], values[:E], mode)
+        a, b = ops._split_ab(c, v, factors, mode)
         for prec in ("f32", "bf16"):
             got = kron_segsum(rows, a, b, shape[mode], precision=prec)
             again = kron_segsum(rows, a, b, shape[mode], precision=prec)
             want = ref.kron_segsum_ref(rows, a, b, shape[mode], prec)
             errs["kron_segsum"] = max(errs["kron_segsum"], check(
                 f"mode {mode} {prec} E={E} K={a.shape[1] * b.shape[1]}",
-                got, want, again))
-        del rows, a, b, got, again, want
+                got, want, again), check_gather(
+                f"mode {mode} {prec}", rows, c, v, factors, mode,
+                shape[mode], prec, got))
+        del rows, c, v, a, b, got, again, want
 
     empty = kron_segsum(torch.zeros((0,), dtype=torch.int32, device=dev),
                         torch.zeros((0, 10), device=dev),
@@ -206,15 +299,32 @@ def phase_kernel_checks(coords, values, factors, shape) -> dict:
     t4 = synth_tensor(FOUR_MODE[0], FOUR_MODE[1], alphas=1.0, seed=1)
     c4, v4 = device_coords(t4, dev)
     f4 = hooi.random_factors(t4.shape, (10, 10, 10, 10), make_key(4), dev)
-    rows, a, b = sorted_split(c4, v4, f4, 0)
+    rows, c, v = sorted_elements(c4, v4, 0)
+    a, b = ops._split_ab(c, v, f4, 0)
     got = kron_segsum(rows, a, b, t4.shape[0])
     again = kron_segsum(rows, a, b, t4.shape[0])
     want = ref.kron_segsum_ref(rows, a, b, t4.shape[0])
     errs["kron_segsum"] = max(errs["kron_segsum"], check(
-        f"4-mode K={a.shape[1] * b.shape[1]} E={t4.nnz}", got, want, again))
-    del rows, a, b, got, again, want, c4, v4
+        f"4-mode K={a.shape[1] * b.shape[1]} E={t4.nnz}", got, want, again),
+        check_gather("4-mode", rows, c, v, f4, 0, t4.shape[0], "f32", got))
+    del rows, c, v, a, b, got, again, want, c4, v4
 
+    # the gather form on a hub: 30% of the main-path elements moved into one
+    # mode-0 slice
     g = torch.Generator(device=dev).manual_seed(5)
+    E_hub, _, share = HUB
+    ch = coords[:E_hub].clone()
+    ch[torch.rand(E_hub, device=dev, generator=g) < share, 0] = shape[0] // 3
+    rows, c, v = sorted_elements(ch, values[:E_hub], 0)
+    for prec in ("f32", "bf16"):
+        z_row = kron_segsum(rows, *ops._split_ab(c, v, factors, 0), shape[0],
+                            precision=prec)
+        errs["kron_segsum"] = max(errs["kron_segsum"], check_gather(
+            f"hub {prec}: {int((rows == shape[0] // 3).sum())} of {E_hub} "
+            "elements in one row", rows, c, v, factors, 0, shape[0], prec,
+            z_row))
+    del ch, rows, c, v, z_row
+
     E_hub, R_hub, share = HUB
     rows = torch.randint(0, R_hub, (E_hub,), device=dev, generator=g)
     rows[torch.rand(E_hub, device=dev, generator=g) < share] = R_hub // 3
@@ -348,6 +458,10 @@ def phase_profile(t) -> None:
 
 
 def phase_timings(coords, values, factors, shape) -> dict:
+    """Each kernel at the single-process path's shapes: the gather form
+    against its bound and against what the path paid before (``_split_ab``
+    plus the row form); ``oracle_pair`` per main-path call (one product) as
+    call time back to back and as device time, beside one ``torch.matmul``."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.kron_segsum import kron_segsum
@@ -357,35 +471,80 @@ def phase_timings(coords, values, factors, shape) -> dict:
     dev = coords.device
     g = torch.Generator(device=dev).manual_seed(7)
     for mode in range(len(shape)):
-        rows, a, b = sorted_split(coords, values, factors, mode)
-        E, Ka, Kb = a.shape[0], a.shape[1], b.shape[1]
-        ms = cuda_ms(lambda: kron_segsum(rows, a, b, shape[mode]), reps=5)
-        plain = cuda_ms(lambda: ref.kron_segsum_ref(rows, a, b, shape[mode]),
-                        reps=2)
-        bound, by = kron_bound_ms(E, Ka, Kb, shape[mode])
-        log(f"kron_segsum mode {mode}: E={E} K={Ka * Kb} rows={shape[mode]} "
-            f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bound:.4f} ({by})")
-        out["kron_segsum"].append((ms, plain, bound, by))
-        del rows, a, b
+        rows, c, v = sorted_elements(coords, values, mode)
+        R = shape[mode]
+        E = int(rows.shape[0])
+        Ka, Kb = ops.split_kron_dims([f.shape[1] for f in factors], mode)
+
+        def gather():
+            return ops.penultimate_sorted(c, v, rows, factors, mode, R)
+
+        def split_row():
+            return kron_segsum(rows, *ops._split_ab(c, v, factors, mode), R)
+
+        split_ms = cuda_ms(split_row, reps=3)
+        ms = cuda_ms(gather, reps=5)
+        ms2 = cuda_ms(gather, reps=5)
+        split_ms2 = cuda_ms(split_row, reps=3)
+        a, b = ops._split_ab(c, v, factors, mode)
+        row_ms = cuda_ms(lambda: kron_segsum(rows, a, b, R), reps=5)
+        plain = cuda_ms(lambda: ref.kron_segsum_ref(rows, a, b, R), reps=2)
+        bound, by = gather_bound_ms(E, len(shape), Ka, Kb, R,
+                                    factor_rows_read(factors, mode))
+        row_bound, _ = kron_bound_ms(E, Ka, Kb, R)
+        log(f"kron_segsum mode {mode}: E={E} K={Ka * Kb} rows={R} gather "
+            f"ms={ms:.4f}/{ms2:.4f} bound_ms={bound:.4f} ({by}); before: "
+            f"_split_ab+row form ms={split_ms:.4f}/{split_ms2:.4f}, row "
+            f"form alone ms={row_ms:.4f} (bound {row_bound:.4f}); "
+            f"plain_ms={plain:.4f}")
+        out["kron_segsum"].append(dict(
+            ms=(ms + ms2) / 2, plain=plain, bound=bound, by=by,
+            row_ms=row_ms, row_bound=row_bound,
+            split_row_ms=(split_ms + split_ms2) / 2))
+        del rows, c, v, a, b
         torch.cuda.empty_cache()
 
-        Z = ops.penultimate(coords, values, factors, mode, shape[mode])
-        R, K = Z.shape
+        Z = ops.penultimate(coords, values, factors, mode, R)
+        K = Z.shape[1]
         x = torch.randn((K,), device=dev, generator=g)
         y = torch.randn((R,), device=dev, generator=g)
+
         # per call, over the main path's two calls (Z @ x, then Zᵀ @ y)
-        ms = cuda_ms(lambda: (oracle_pair(Z, x, None),
-                              oracle_pair(Z, None, y)), reps=50, warmup=3) / 2
+        def pair():
+            oracle_pair(Z, x, None)
+            oracle_pair(Z, None, y)
+
+        def lib_pair():
+            torch.matmul(Z, x)
+            torch.matmul(y, Z)
+
+        ms = cuda_ms(pair, reps=100, warmup=3) / 2
+        dev_ms = device_ms(pair, reps=100, match="oracle_kernel") / 2
+        zx_dev = device_ms(lambda: oracle_pair(Z, x, None), reps=100,
+                           match="oracle_kernel")
+        zty_dev = device_ms(lambda: oracle_pair(Z, None, y), reps=100,
+                            match="oracle_kernel")
+        lib_zx = device_ms(lambda: torch.matmul(Z, x), reps=100)
+        lib_zty = device_ms(lambda: torch.matmul(y, Z), reps=100)
         plain = cuda_ms(lambda: (ref.oracle_pair_ref(Z, x, None),
                                  ref.oracle_pair_ref(Z, None, y)),
-                        reps=50, warmup=3) / 2
-        lib = cuda_ms(lambda: (torch.matmul(Z, x), torch.matmul(y, Z)),
-                      reps=50, warmup=3) / 2
+                        reps=100, warmup=3) / 2
+        lib = cuda_ms(lib_pair, reps=100, warmup=3) / 2
+        lib_dev = device_ms(lib_pair, reps=100) / 2
         bound, by = oracle_half_bound_ms(R, K, 1)
+        log(f"  clocks after the oracle_pair timings (sm, max sm, power): "
+            f"{clocks_line()}")
         log(f"oracle_pair mode {mode}: Z={R}x{K} s=1 one half per call "
-            f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
-            f"bound_ms={bound:.4f} ({by})")
-        out["oracle_pair"].append((ms, plain, bound, by, lib))
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} (Z@x {zx_dev:.4f}, Z^T@y "
+            f"{zty_dev:.4f}) plain_ms={plain:.4f} library_ms={lib:.4f} "
+            f"library_device_ms={lib_dev:.4f} (Z@x {lib_zx:.4f}, y@Z "
+            f"{lib_zty:.4f}) bound_ms={bound:.4f} ({by})")
+        out["oracle_pair"].append(dict(ms=ms, device_ms=dev_ms, plain=plain,
+                                       bound=bound, by=by, lib=lib,
+                                       lib_device_ms=lib_dev,
+                                       zx_device_ms=zx_dev,
+                                       zty_device_ms=zty_dev))
+        del Z
     return out
 
 
@@ -406,7 +565,7 @@ def phase_fused_checks(coords, values, factors, shape) -> float:
     from repro_torch.convert import device_coords
     from repro_torch.core import hooi
     from repro_torch.data.tensors import synth_tensor
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
     from repro_torch.random import make_key
 
@@ -418,27 +577,34 @@ def phase_fused_checks(coords, values, factors, shape) -> float:
         f"s={FUSED_PANELS}, tolerance {TOL} x max|plain|; Z must equal "
         "kron_segsum's bit for bit")
     for mode in range(len(shape)):
-        rows, a, b = sorted_split(coords[:E], values[:E], factors, mode)
+        rows, c, v = sorted_elements(coords[:E], values[:E], mode)
+        a, b = ops._split_ab(c, v, factors, mode)
         K = a.shape[1] * b.shape[1]
         for prec in ("f32", "bf16"):
             z_kron = kron_segsum(rows, a, b, shape[mode], precision=prec)
             for s in FUSED_PANELS:
                 X = torch.randn((K, s), device=dev, generator=g)
+                got = kron_segsum_oracle(rows, a, b, shape[mode], X,
+                                         precision=prec)
                 err = max(err, check_fused(
-                    f"mode {mode} {prec} s={s}",
-                    kron_segsum_oracle(rows, a, b, shape[mode], X,
-                                       precision=prec),
+                    f"mode {mode} {prec} s={s}", got,
                     kron_segsum_oracle(rows, a, b, shape[mode], X,
                                        precision=prec),
                     ref.kron_segsum_oracle_ref(rows, a, b, shape[mode], X,
                                                prec), z_kron))
+                if s == DIST_BLOCK:
+                    err = max(err, check_gather(
+                        f"oracle mode {mode} {prec} s={s}", rows, c, v,
+                        factors, mode, shape[mode], prec, got[0], X, got[1]))
+                del got
             del z_kron
-        del rows, a, b
+        del rows, c, v, a, b
 
     t4 = synth_tensor(FOUR_MODE[0], FOUR_MODE[1], alphas=1.0, seed=1)
     c4, v4 = device_coords(t4, dev)
     f4 = hooi.random_factors(t4.shape, (10, 10, 10, 10), make_key(4), dev)
-    rows, a, b = sorted_split(c4, v4, f4, 0)
+    rows, c, v = sorted_elements(c4, v4, 0)
+    a, b = ops._split_ab(c, v, f4, 0)
     X = torch.randn((a.shape[1] * b.shape[1], 8), device=dev, generator=g)
     err = max(err, check_fused(
         f"4-mode K={a.shape[1] * b.shape[1]} s=8",
@@ -446,7 +612,7 @@ def phase_fused_checks(coords, values, factors, shape) -> float:
         kron_segsum_oracle(rows, a, b, t4.shape[0], X),
         ref.kron_segsum_oracle_ref(rows, a, b, t4.shape[0], X),
         kron_segsum(rows, a, b, t4.shape[0])))
-    del rows, a, b, c4, v4
+    del rows, c, v, a, b, c4, v4
 
     E_hub, R_hub, share = HUB
     rows = torch.randint(0, R_hub, (E_hub,), device=dev, generator=g)
@@ -620,39 +786,141 @@ def fused_bound_ms(E: int, Ka: int, Kb: int, num_rows: int, nonempty: int,
         else "operations"
 
 
-def phase_dist_timings(pl, factors) -> list:
-    """kron_segsum_oracle per call at the distributed shapes: each mode's
-    stacked partition (all ranks, one launch) with a width-8 panel."""
+def fused_gather_bound_ms(E: int, N: int, Ka: int, Kb: int, num_rows: int,
+                          factor_rows: int, nonempty: int, s: int
+                          ) -> tuple[float, str]:
+    """The gather form's bound (``gather_bound_ms``) plus ZX written, X
+    read and a ZX row for every row that holds elements."""
+    K = Ka * Kb
+    bytes_ = (E * 4 * (2 + N) + factor_rows * 4 + num_rows * (K + s) * 4
+              + K * s * 4)
+    flops = 2 * E * K + E * Ka + 2 * nonempty * K * s
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def phase_dist_timings(pl, factors) -> dict:
+    """At the distributed shapes, each mode's stacked partition (all ranks,
+    one launch, padding included): the gather form of ``kron_segsum_oracle``
+    with a width-8 panel checked bitwise against the row form and timed
+    against its bound, the row form, ``_split_ab`` plus the row form, its
+    plain version and ``kron_segsum`` plus one ``torch.matmul``; then the
+    stacked ``oracle_pair`` (P ranks, s = 8) checked against its plain
+    version and bitwise against P single calls, and timed against P single
+    calls plus ``torch.stack``."""
     import torch
     from repro_torch.core.lanczos import block_start_panel
     from repro_torch.distributed.executor import upload_mode
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
+    from repro_torch.kernels.oracle_fused import oracle_pair
     from repro_torch.random import make_key
 
     dev = torch.device(DEVICE)
-    out = []
+    g = torch.Generator(device=dev).manual_seed(13)
+    out = {"kron_segsum_oracle": [], "stacked": [], "err": 0.0,
+           "stacked_err": 0.0}
     for mode, mp in enumerate(pl.parts):
         arrs = upload_mode(mp, dev)
-        a, b = ops._split_ab(arrs["coords"], arrs["values"], factors, mode)
-        rows = arrs["rows"]
+        c, v, rows = arrs["coords"], arrs["values"], arrs["rows"]
         del arrs
-        R = mp.P * mp.R_pad
-        E, Ka, Kb = a.shape[0], a.shape[1], b.shape[1]
+        P, R_pad = mp.P, mp.R_pad
+        R = P * R_pad
+        E = int(rows.shape[0])
+        Ka, Kb = ops.split_kron_dims([f.shape[1] for f in factors], mode)
         X = block_start_panel(make_key(0), Ka * Kb, DIST_BLOCK, dev)
         nonempty = int(torch.unique_consecutive(rows).numel())
-        ms = cuda_ms(lambda: kron_segsum_oracle(rows, a, b, R, X), reps=5)
+        pad = int((mp.e_per_rank < mp.E_pad).sum())
+
+        def gather():
+            return ops.penultimate_sorted_oracle(c, v, rows, factors, mode,
+                                                 R, X)
+
+        def split_row():
+            return kron_segsum_oracle(
+                rows, *ops._split_ab(c, v, factors, mode), R, X)
+
+        a, b = ops._split_ab(c, v, factors, mode)
+        z_row = kron_segsum_oracle(rows, a, b, R, X)
+        out["err"] = max(out["err"], check_gather(
+            f"dist mode {mode} (P={P}, {pad} padded ranks, "
+            f"{E - int(mp.e_per_rank.sum())} padding elements)", rows, c, v,
+            factors, mode, R, "f32", z_row[0], X, z_row[1]))
+        row_ms = cuda_ms(lambda: kron_segsum_oracle(rows, a, b, R, X),
+                         reps=5)
         two = cuda_ms(lambda: torch.matmul(kron_segsum(rows, a, b, R), X),
                       reps=5)
         plain = cuda_ms(lambda: ref.kron_segsum_oracle_ref(rows, a, b, R, X),
                         reps=2)
-        bound, by = fused_bound_ms(E, Ka, Kb, R, nonempty, DIST_BLOCK)
+        del a, b
+        torch.cuda.empty_cache()
+        split_ms = cuda_ms(split_row, reps=3)
+        ms = cuda_ms(gather, reps=5)
+        ms2 = cuda_ms(gather, reps=5)
+        split_ms2 = cuda_ms(split_row, reps=3)
+        bound, by = fused_gather_bound_ms(E, len(factors), Ka, Kb, R,
+                                          factor_rows_read(factors, mode),
+                                          nonempty, DIST_BLOCK)
+        row_bound, _ = fused_bound_ms(E, Ka, Kb, R, nonempty, DIST_BLOCK)
         log(f"kron_segsum_oracle mode {mode}: E={E} K={Ka * Kb} rows={R} "
-            f"(non-empty {nonempty}) s={DIST_BLOCK} ms={ms:.4f} "
-            f"kron_segsum+matmul_ms={two:.4f} plain_ms={plain:.4f} "
-            f"bound_ms={bound:.4f} ({by})")
-        out.append((ms, plain, bound, by, two))
-        del a, b, rows
+            f"(non-empty {nonempty}) s={DIST_BLOCK} gather ms={ms:.4f}/"
+            f"{ms2:.4f} bound_ms={bound:.4f} ({by}); before: _split_ab+row "
+            f"form ms={split_ms:.4f}/{split_ms2:.4f}, row form alone "
+            f"ms={row_ms:.4f} (bound {row_bound:.4f}), "
+            f"kron_segsum+matmul_ms={two:.4f}; plain_ms={plain:.4f}")
+        out["kron_segsum_oracle"].append(dict(
+            ms=(ms + ms2) / 2, plain=plain, bound=bound, by=by, row_ms=row_ms,
+            row_bound=row_bound, split_row_ms=(split_ms + split_ms2) / 2,
+            two=two))
+
+        Z = gather()[0]
+        K = Z.shape[1]
+        y = torch.randn((P, R_pad, DIST_BLOCK), device=dev, generator=g)
+        xs = torch.randn((K, DIST_BLOCK), device=dev, generator=g)
+        got = oracle_pair(Z, None, y, P)[1]
+        again = oracle_pair(Z, None, y, P)[1]
+        want = ref.oracle_pair_ref(Z, None, y, P)[1]
+        single = [oracle_pair(Z[p * R_pad:(p + 1) * R_pad], None, y[p])[1]
+                  for p in range(P)]
+        out["stacked_err"] = max(out["stacked_err"], check(
+            f"stacked oracle_pair Z^T@y mode {mode} P={P} R_pad={R_pad} "
+            f"K={K} s={DIST_BLOCK}", got, want, again))
+        if not all(torch.equal(got[p], single[p]) for p in range(P)):
+            raise AssertionError(f"stacked oracle_pair mode {mode}: not "
+                                 "bitwise equal to single calls")
+        log("  stacked oracle_pair: bitwise equal to P single calls")
+
+        def stacked():
+            oracle_pair(Z, None, y, P)
+
+        def singles():
+            torch.stack([oracle_pair(Z[p * R_pad:(p + 1) * R_pad], None,
+                                     y[p])[1] for p in range(P)])
+
+        def zmv():
+            oracle_pair(Z, xs, None)
+
+        st_ms = cuda_ms(stacked, reps=100, warmup=3)
+        st_dev = device_ms(stacked, reps=100, match="oracle_kernel")
+        sg_ms = cuda_ms(singles, reps=100, warmup=3)
+        sg_dev = device_ms(singles, reps=100)
+        zmv_ms = cuda_ms(zmv, reps=100, warmup=3)
+        zmv_dev = device_ms(zmv, reps=100, match="oracle_kernel")
+        lib = cuda_ms(lambda: torch.bmm(Z.view(P, R_pad, K).transpose(1, 2),
+                                        y), reps=100, warmup=3)
+        bound, by = oracle_half_bound_ms(R, K, DIST_BLOCK)
+        bound = bound + 1e3 * 4 * (P - 1) * K * DIST_BLOCK / HBM_BYTES_PER_S
+        log(f"stacked oracle_pair mode {mode}: Z^T@y ms={st_ms:.4f} "
+            f"device_ms={st_dev:.4f} vs {P} single calls+torch.stack "
+            f"ms={sg_ms:.4f} device_ms={sg_dev:.4f}; one torch.bmm "
+            f"ms={lib:.4f}; bound_ms={bound:.4f} ({by}); Z@X (zmv, "
+            f"{R} rows) ms={zmv_ms:.4f} device_ms={zmv_dev:.4f}")
+        out["stacked"].append(dict(ms=st_ms, device_ms=st_dev, single_ms=sg_ms,
+                                   single_device_ms=sg_dev, lib=lib,
+                                   bound=bound, zmv_ms=zmv_ms,
+                                   zmv_device_ms=zmv_dev))
+        del c, v, rows, Z, y, got, again, want, single, z_row
         torch.cuda.empty_cache()
     return out
 
@@ -704,7 +972,11 @@ def main() -> int:
     dist = phase_dist(t)
     phase_dist_small()
     phase_dist_profile(t, dist["plan"])
-    fused_timing = phase_dist_timings(dist["plan"], dist["factors"])
+    dist_timing = phase_dist_timings(dist["plan"], dist["factors"])
+    errs["kron_segsum_oracle"] = max(errs["kron_segsum_oracle"],
+                                     dist_timing["err"])
+    errs["oracle_pair"] = max(errs["oracle_pair"],
+                              dist_timing["stacked_err"])
     del dist["factors"]
     torch.cuda.empty_cache()
 
@@ -714,7 +986,7 @@ def main() -> int:
 
     coords, values = device_coords(t, dev)
     timing = phase_timings(coords, values, factors, t.shape)
-    timing["kron_segsum_oracle"] = fused_timing
+    timing["kron_segsum_oracle"] = dist_timing["kron_segsum_oracle"]
     run = dist["runs"]["liteopt"]
     dist_sweeps = len(run["stats"].fits)
     by_path = {
@@ -726,6 +998,13 @@ def main() -> int:
         + ", ".join(f"{k} {v / dist_sweeps:g}"
                     for k, v in run["launches"].items()))
 
+    def mean(name, key):
+        return float(np.mean([r[key] for r in timing[name]]))
+
+    def bound_by(name):
+        rows = timing[name]
+        return rows[int(np.argmax([r["bound"] for r in rows]))]["by"]
+
     kernels = []
     for name, source, replaces in (
             ("kron_segsum", "src/repro_torch/kernels/csrc/kron_segsum.cu",
@@ -735,20 +1014,33 @@ def main() -> int:
             ("kron_segsum_oracle",
              "src/repro_torch/kernels/csrc/kron_segsum.cu",
              "src/repro/kernels/kron_segsum.py:289")):
-        rows = timing[name]
-        mean = lambda i: float(np.mean([r[i] for r in rows]))  # noqa: E731
-        by = rows[int(np.argmax([r[2] for r in rows]))][3]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": run["launches"][name],
             "launches_per_sweep": run["launches"][name] / dist_sweeps,
             "launches_by_path": by_path[name],
-            "max_abs_err": errs[name], "ms": mean(0), "plain_ms": mean(1),
-            "bound_ms": mean(2), "bound_by": by,
-            "library_ms": mean(4) if name == "oracle_pair" else None,
+            "max_abs_err": errs[name], "ms": mean(name, "ms"),
+            "plain_ms": mean(name, "plain"), "bound_ms": mean(name, "bound"),
+            "bound_by": bound_by(name),
+            "library_ms": mean(name, "lib") if name == "oracle_pair"
+            else None,
         }
+        if name == "oracle_pair":
+            stacked = dist_timing["stacked"]
+            entry.update(
+                device_ms=mean(name, "device_ms"),
+                zx_device_ms=mean(name, "zx_device_ms"),
+                zty_device_ms=mean(name, "zty_device_ms"),
+                library_device_ms=mean(name, "lib_device_ms"),
+                stacked={k: float(np.mean([r[k] for r in stacked]))
+                         for k in stacked[0]})
+        else:  # the gather form's numbers, then the row form's
+            entry.update(
+                form="gather", row_form_ms=mean(name, "row_ms"),
+                row_form_bound_ms=mean(name, "row_bound"),
+                split_ab_plus_row_form_ms=mean(name, "split_row_ms"))
         if name == "kron_segsum_oracle":
-            entry["kron_segsum_plus_matmul_ms"] = mean(4)
+            entry["kron_segsum_plus_matmul_ms"] = mean(name, "two")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -95,14 +95,20 @@ def stacked_products(Z: torch.Tensor, P: int, *,
     ``zmv(x)`` is one product over all ranks, ``(P*R_pad[, s])``;
     ``zrmv(y)`` takes ``(P, R_pad[, s])`` and returns each rank's
     ``Z_pᵀ y_p`` as ``(P, K_hat[, s])`` (the comm space sums them over the
-    ranks).
+    ranks). Fused, that is one batched ``oracle_pair`` call: on the card
+    one launch for all ranks.
     """
     matvec = z_products(Z, fused=fused)[0]
-    per_rank = [z_products(Zp, fused=fused)[1]
-                for Zp in Z.view(P, -1, Z.shape[1]).unbind(0)]
+    if fused:
+        def rmatvec(y):
+            return kernel_ops.oracle_pair(Z, None, y.contiguous(), P)[1]
+    else:
+        # the plain products, rank by rank as the reference's shard_map
+        # body takes them
+        per_rank = [z_products(Zp)[1] for Zp in Z.view(P, -1, Z.shape[1])]
 
-    def rmatvec(y):
-        return torch.stack([r(yp) for r, yp in zip(per_rank, y.unbind(0))])
+        def rmatvec(y):
+            return torch.stack([r(yp) for r, yp in zip(per_rank, y)])
 
     return matvec, rmatvec
 

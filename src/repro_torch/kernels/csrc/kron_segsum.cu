@@ -7,23 +7,44 @@
 // row's run is a contiguous stretch of elements and a sorted segmented reduce
 // needs no scatter at all.
 //
-// What bounds it on an H100: bytes. Every element is read once (row id 4 B,
-// a row 4*Ka B, b row 4*Kb B: 84 B at Ka = Kb = 10) for 2*Ka*Kb flops, far
-// below the card's ratio of flops to bytes, so the least time is the input
-// bytes over 3.35 TB/s. Reaching it takes few instructions and few cache
-// transactions per element, since each element feeds Ka*Kb outputs.
+// Two input forms run through the same chunk kernel:
+//  * the gather form (the main path): per element its row id, its value and
+//    its int32 coordinates, one (E, N) row-major row; a[e] = value[e] *
+//    F_lead[coords[e, col_a]] (one f32 multiply per entry, as the host's
+//    split forms it) and b[e] = F_last[coords[e, col_b]], read from the small
+//    factor matrices, which stay in L2. For N >= 4 the leading factors are
+//    folded on the host into a (E, Ka) `a` and only b is gathered;
+//  * the row form (the TPU function's own signature): a and b given per
+//    element, the element's own row as the index and no value factor.
+//  Given the same a bits, both forms give the same Z bits: the same walk and
+//  the same arithmetic in the same order.
+//
+// What bounds it on an H100: bytes. The gather form reads per element 4 B of
+// row id, 4 B of value and 4*N B of coordinates (20 B at N = 3), the factors
+// once and Z once (and the row form 4*(1 + Ka + Kb) B: 84 B at Ka = Kb = 10),
+// for 2*Ka*Kb flops, far below the card's ratio of flops to bytes, so the least
+// time is those bytes over 3.35 TB/s. What the design does about it: the
+// element records stream through shared memory by cp.async, two tiles
+// ahead of the walk; the a and b rows of the next tile are gathered from
+// L2/L1 into shared memory by cp.async while the warp walks the current
+// one, several elements per instruction (a warp instruction touches few
+// cache lines), so the walk itself reads only shared memory and the
+// gather latency hides behind it.
 //
 // Design:
 //  * Balance under hub slices. One warp walks one chunk of exactly `chunk`
 //    consecutive elements, whatever rows they hold. A row with millions of
 //    elements (the paper's hub slices) is split over many warps instead of
 //    serialising one block, which a block-per-row design would do.
+//  * Staging: each warp owns kRecStages record tiles and two gather tiles
+//    of `tile` elements in shared memory (10 KB a warp); records run
+//    kRecDepth tiles ahead of the walk (device-memory latency), gathers one
+//    tile ahead (L2 latency). A tile's a and b rows are padded to 16 bytes,
+//    so a lane reads its four b values with one 16-byte shared load.
 //  * Few loads per output: each lane owns one a column and up to four
 //    adjacent b columns (32 lanes cover K̂ = 100 in one pass; wider K̂ adds
 //    tiles of 32 lanes), and all lanes of a warp read the same element at
-//    once, so the row id and the a and b rows are broadcast loads. On an
-//    H100 at nell-2 size this halved the time of a first version that gave
-//    each thread a single output column.
+//    once: broadcast reads of shared memory.
 //  * Determinism: no atomics. Each lane keeps the current row's run in
 //    registers and walks its chunk in element order. A row wholly inside a
 //    chunk can occur in no other chunk, so the warp writes it directly. The
@@ -41,7 +62,12 @@
 //    host, so the launch costs no device-to-host sync.
 //
 // Preconditions (arranged by the callers, which sort by row on the device):
-// rows sorted ascending; a and b row-major float32; E >= 1.
+// rows sorted ascending; a, b, values and the factors row-major float32;
+// coordinates within their factors' rows; E >= 1; padded(Ka) + padded(Kb)
+// at most about 1,250 floats (a tile of one element must fit a warp's
+// shared memory; wider rows are refused at launch). Padding elements of the
+// distributed partitions carry value 0 and coordinates 0: their gathers read
+// row 0 of each factor and add 0.
 //
 // kron_segsum_oracle: (Z, Z @ X) for a (Ka*Kb, s) float32 panel X.
 //
@@ -50,24 +76,27 @@
 // VMEM-resident Z tile into the first block-Lanczos panel before Z left the
 // core, so the first Lanczos product cost no second read of Z from HBM.
 //
-// What bounds it here is kron_segsum's: the element bytes. Z itself is small
+// What bounds it is kron_segsum's: the element bytes. Z itself is small
 // (at most 28,818 x 100 floats, 11.5 MB, at nell-2 widths), so the product
 // is a few microseconds of work; what matters is that it does not slow the
 // element walk.
 //
-// Design: the launcher runs kron_segsum's two kernels unchanged, so Z is
-// bitwise equal to kron_segsum's, and then zx_kernel, one warp per row of Z.
-// Z was written a moment before and fits in the H100's 50 MB L2 at these
-// widths, so the product should find it there rather than in device memory:
-// the saving the TPU kernel made with VMEM. (Computing a row's ZX in the
-// chunk walk's registers, where the row finishes, was measured to slow the
-// walk itself by about 5% at nell-2 size: the epilogue in the loop changes
-// how the loop is compiled.) Each lane sums its columns in column order and
-// a fixed-order __shfl_xor butterfly sums the warp, so reruns are bitwise
-// equal; no atomics. ZX is f32 from the f32 Z under both precisions.
+// Design: the launcher runs kron_segsum's two kernels unchanged (either
+// input form), so Z is bitwise equal to kron_segsum's, and then zx_kernel,
+// one warp per row of Z. Z was written a moment before and fits in the
+// H100's 50 MB L2 at these widths, so the product should find it there
+// rather than in device memory: the saving the TPU kernel made with VMEM.
+// (Computing a row's ZX in the chunk walk's registers, where the row
+// finishes, was measured to slow the walk itself by about 5% at nell-2 size:
+// the epilogue in the loop changes how the loop is compiled.) Each lane sums
+// its columns in column order and a fixed-order __shfl_xor butterfly sums
+// the warp, so reruns are bitwise equal; no atomics. ZX is f32 from the f32
+// Z under both precisions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -75,14 +104,96 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// acc + a * b: one fused multiply-add in f32; under bf16 the rounded
+// operands' product rounded to bf16, then added in f32
 template <bool kBf16>
-__device__ __forceinline__ float product(float a, float b) {
-  if (kBf16) return bf16_round(bf16_round(a) * bf16_round(b));
-  return a * b;
+__device__ __forceinline__ float accumulate(float acc, float a, float b) {
+  if (kBf16) return __fadd_rn(acc, bf16_round(__fmul_rn(bf16_round(a), bf16_round(b))));
+  return __fmaf_rn(a, b, acc);
 }
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kCols = 4;  // adjacent b columns one lane accumulates
+constexpr int kCols = 4;              // adjacent b columns one lane accumulates
+constexpr int kRecDepth = 4;          // record tiles in flight ahead of the walk
+constexpr int kRecStages = kRecDepth + 1;
+constexpr int kMaxTile = 32;
+constexpr int kWarpSmemWords = 2560;  // shared memory per warp (10 KB)
+
+struct ChunkArgs {
+  const int* rows;      // (E,)
+  const float* values;  // (E,) in the gather form of a, else null
+  const int* coords;    // (E, N) when either operand is gathered, else null
+  const float* A;       // gathered: (L, Ka) factor; row form: (E, Ka) a
+  const float* B;       // gathered: (L, Kb) factor; row form: (E, Kb) b
+  float* z;
+  float* part;
+  long long E, nchunks;
+  int num_rows, Ka, Kb, chunk, N, col_a, col_b;
+  int tile;  // elements per staged tile
+};
+
+// 32-bit words of one staged element record: row id, value, coordinates
+__host__ __device__ constexpr int record_words(bool gather_a, bool gather_b, int N) {
+  return 1 + (gather_a ? 1 : 0) + ((gather_a || gather_b) ? N : 0);
+}
+
+// staged a and b rows are padded to 16-byte multiples
+__host__ __device__ constexpr int padded(int k) { return (k + 3) & ~3; }
+
+// Words of one record stage (a 16-byte multiple) and of a warp's record
+// and gather stages.
+__host__ __device__ constexpr int record_stage(int T, int W) { return padded(T * W); }
+__host__ __device__ constexpr int warp_words(int T, int W, int Ka, int Kb) {
+  return kRecStages * record_stage(T, W) + 2 * T * (padded(Ka) + padded(Kb));
+}
+
+// Elements per tile: a power of two up to kMaxTile whose record and gather
+// stages fit one warp's share of shared memory (0: the rows are too wide).
+__host__ __device__ inline int tile_elements(bool gather_a, bool gather_b, int N,
+                                             int Ka, int Kb) {
+  const int W = record_words(gather_a, gather_b, N);
+  for (int t = kMaxTile; t >= 1; t >>= 1)
+    if (warp_words(t, W, Ka, Kb) <= kWarpSmemWords) return t;
+  return 0;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The warp copies n 32-bit words from src to dst: 16-byte copies where
+// both are 16-byte aligned, else 4-byte ones.
+__device__ __forceinline__ void warp_copy(uint32_t* dst, const uint32_t* src, int n,
+                                          int lane) {
+  int done = 0;
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (((reinterpret_cast<uintptr_t>(src) | d) & 15) == 0) {
+    done = n & ~3;
+    for (int i = 4 * lane; i < done; i += 128) cp_async16(dst + i, src + i);
+  }
+  for (int i = done + lane; i < n; i += 32) cp_async4(dst + i, src + i);
+}
 
 __device__ __forceinline__ void store_cols(float* dst, const float (&acc)[kCols],
                                            int ncol) {
@@ -91,56 +202,154 @@ __device__ __forceinline__ void store_cols(float* dst, const float (&acc)[kCols]
     if (w < ncol) dst[w] = acc[w];
 }
 
-// One warp per element chunk. Lane p of pair tile blockIdx.y owns the output
-// columns ka*Kb + kb0 .. + ncol-1 (one a column, up to kCols adjacent b
-// columns), so every lane of the warp reads the same element at the same
-// time: the row id, the a row and the b row are broadcast loads.
-template <bool kBf16>
-__global__ void chunk_kernel(const int* __restrict__ rows,
-                             const float* __restrict__ a,
-                             const float* __restrict__ b,
-                             float* __restrict__ z,
-                             float* __restrict__ part,
-                             long long E, long long nchunks, int num_rows,
-                             int Ka, int Kb, int chunk) {
+// One warp per element chunk, walked in tiles of g.tile elements through
+// shared memory. Copy groups, in commit order: the records (row ids, values,
+// coordinates) of tiles 0 .. kRecDepth-1, the gather of tile 0 and an empty
+// group; then per tile k, the gather of tile k+1 (its a and b rows, read
+// from the factors at the staged coordinates: cp.async, several elements
+// per warp instruction) and the records of tile k+kRecDepth. So before
+// walking tile k a lane waits for all but its newest group: tile k's gather
+// and tile k+1's records are then in place, while later records stay in
+// flight. The walk reads only shared memory. Lane p of pair tile blockIdx.y
+// owns the output columns ka*Kb + kb0 .. + ncol-1 (one a column, up to kCols
+// adjacent b columns); every lane reads the same element at the same time
+// (broadcast reads). Lanes past the last pair only help stage.
+template <bool kBf16, bool kGatherA, bool kGatherB>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock) chunk_kernel(ChunkArgs g) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr bool kCoords = kGatherA || kGatherB;
+  const int N = g.N, T = g.tile;
+  const int Ka = g.Ka, Kb = g.Kb;
+  const int ka_s = padded(Ka), kb_s = padded(Kb);
+  const int W = record_words(kGatherA, kGatherB, N);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long c = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  if (c >= g.nchunks) return;  // warp-uniform
+  const int RS = record_stage(T, W);
+  uint32_t* rec = smem + warp * kWarpSmemWords;                  // kRecStages x RS
+  float* gat = reinterpret_cast<float*>(rec + kRecStages * RS);  // 2 x T x (ka_s + kb_s)
+
   const int groups = (Kb + kCols - 1) / kCols;
-  const int p = blockIdx.y * 32 + (threadIdx.x & 31);
-  const long long c = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= Ka * groups || c >= nchunks) return;
-  const int K = Ka * Kb;
-  const int ka = p / groups;
-  const int kb0 = (p - ka * groups) * kCols;
+  const int p = blockIdx.y * 32 + lane;
+  const bool active = p < Ka * groups;
+  const int ka = active ? p / groups : 0;
+  const int kb0 = active ? (p - ka * groups) * kCols : 0;
   const int ncol = min(kCols, Kb - kb0);
+  const int K = Ka * Kb;
   const long long col = (long long)ka * Kb + kb0;
-  const long long e0 = c * chunk;
-  const long long e1 = min(e0 + chunk, E);
-  const int head = rows[e0];
-  const float* ap = a + e0 * Ka + ka;
-  const float* bp = b + e0 * Kb + kb0;
-  float* head_slot = part + (2 * c) * K + col;
-  float* tail_slot = part + (2 * c + 1) * K + col;
+  const long long e0 = c * g.chunk;
+  const long long e1 = min(e0 + g.chunk, g.E);
+  const int ntiles = (int)((e1 - e0 + T - 1) / T);
+  const int head = g.rows[e0];
+  float* head_slot = g.part + (2 * c) * K + col;
+  float* tail_slot = g.part + (2 * c + 1) * K + col;
+
+  // gather lanes: `wb` floats per copy (8-byte copies when the rows allow),
+  // h lanes per element, epw elements per warp instruction
+  const bool pairs_ok = ((Ka | Kb) & 1) == 0 &&
+                        ((reinterpret_cast<uintptr_t>(g.A) | reinterpret_cast<uintptr_t>(g.B)) & 7) == 0;
+  const int wb = pairs_ok ? 2 : 1;
+  const int ua = Ka / wb;
+  const int h = ua + Kb / wb;
+  const int epw = h <= 32 ? 32 / h : 1;
+  const int slot = h <= 32 ? lane / h : 0;
+  const int q0 = h <= 32 ? lane - slot * h : lane;
+
+  auto tile_start = [&](int k) { return e0 + (long long)k * T; };
+  auto tile_len = [&](int k) { return (int)min((long long)T, e1 - tile_start(k)); };
+  auto rec_at = [&](int k) { return rec + (k % kRecStages) * RS; };
+  auto gat_at = [&](int k) { return gat + (k & 1) * T * (ka_s + kb_s); };
+
+  auto issue_records = [&](int k) {
+    if (k >= ntiles) return;
+    const long long es = tile_start(k);
+    const int n = tile_len(k);
+    uint32_t* buf = rec_at(k);
+    warp_copy(buf, reinterpret_cast<const uint32_t*>(g.rows + es), n, lane);
+    if (kGatherA)
+      warp_copy(buf + T, reinterpret_cast<const uint32_t*>(g.values + es), n, lane);
+    if (kCoords)
+      warp_copy(buf + T * (kGatherA ? 2 : 1),
+                reinterpret_cast<const uint32_t*>(g.coords + es * N), n * N, lane);
+  };
+
+  auto issue_gather = [&](int k) {
+    if (k >= ntiles || slot >= epw) return;
+    const long long es = tile_start(k);
+    const int n = tile_len(k);
+    const int* crd = reinterpret_cast<const int*>(rec_at(k) + T * (kGatherA ? 2 : 1));
+    float* ga = gat_at(k);
+    float* gb = ga + T * ka_s;
+    for (int u = slot; u < n; u += epw) {
+      for (int q = q0; q < h; q += 32) {
+        const bool is_a = q < ua;
+        const int cc = (is_a ? q : q - ua) * wb;
+        long long idx = es + u;
+        if (is_a ? kGatherA : kGatherB) idx = crd[u * N + (is_a ? g.col_a : g.col_b)];
+        const float* src = is_a ? g.A + idx * Ka + cc : g.B + idx * Kb + cc;
+        float* dst = is_a ? ga + u * ka_s + cc : gb + u * kb_s + cc;
+        if (wb == 2) cp_async8(dst, src);
+        else cp_async4(dst, src);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int k = 0; k < kRecDepth; ++k) {
+    issue_records(k);
+    cp_async_commit();
+  }
+  cp_async_wait<kRecDepth - 1>();  // tile 0's records
+  __syncwarp();
+  issue_gather(0);
+  cp_async_commit();
+  cp_async_commit();  // empty: every tile then waits for all but one group
 
   float acc[kCols];
 #pragma unroll
   for (int w = 0; w < kCols; ++w) acc[w] = 0.f;
   int cur = head;
-  for (long long e = e0; e < e1; ++e, ap += Ka, bp += Kb) {
-    const int r = __ldg(rows + e);
-    if (r != cur) {
-      // cur is not the chunk's last row here (r > cur follows it)
-      if (cur == head)
-        store_cols(head_slot, acc, ncol);
-      else if ((unsigned)cur < (unsigned)num_rows)
-        store_cols(z + (long long)cur * K + col, acc, ncol);
+  for (int k = 0; k < ntiles; ++k) {
+    cp_async_wait<1>();  // tile k's gather and tile k+1's records
+    __syncwarp();
+    issue_gather(k + 1);
+    cp_async_commit();
+    issue_records(k + kRecDepth);
+    cp_async_commit();
+    if (active) {
+      const int n = tile_len(k);
+      const uint32_t* r = rec_at(k);
+      const int* srow = reinterpret_cast<const int*>(r);
+      const float* sval = reinterpret_cast<const float*>(r + T);
+      const float* ga = gat_at(k) + ka;
+      const float* gb = gat_at(k) + T * ka_s + kb0;
+#pragma unroll 4
+      for (int u = 0; u < n; ++u) {
+        const int row = srow[u];
+        float av = ga[u * ka_s];
+        if (kGatherA) av = __fmul_rn(sval[u], av);
+        const float4 bq = *reinterpret_cast<const float4*>(gb + u * kb_s);
+        const float bv[kCols] = {bq.x, bq.y, bq.z, bq.w};
+        if (row != cur) {
+          // cur is not the chunk's last row here (row > cur follows it)
+          if (cur == head)
+            store_cols(head_slot, acc, ncol);
+          else if ((unsigned)cur < (unsigned)g.num_rows)
+            store_cols(g.z + (long long)cur * K + col, acc, ncol);
 #pragma unroll
-      for (int w = 0; w < kCols; ++w) acc[w] = 0.f;
-      cur = r;
+          for (int w = 0; w < kCols; ++w) acc[w] = 0.f;
+          cur = row;
+        }
+#pragma unroll
+        for (int w = 0; w < kCols; ++w)
+          if (w < ncol) acc[w] = accumulate<kBf16>(acc[w], av, bv[w]);
+      }
     }
-    const float av = __ldg(ap);
-#pragma unroll
-    for (int w = 0; w < kCols; ++w)
-      if (w < ncol) acc[w] += product<kBf16>(av, __ldg(bp + w));
+    __syncwarp();
   }
+  cp_async_wait<0>();  // no copy outlives the warp
+  if (!active) return;
   // cur is the chunk's last row
   if (cur == head) {
     store_cols(head_slot, acc, ncol);
@@ -228,15 +437,40 @@ __global__ void zx_kernel(const float* __restrict__ z,
   }
 }
 
+template <bool kBf16, bool kGatherA, bool kGatherB>
+cudaError_t launch_chunks(ChunkArgs a, dim3 grid, cudaStream_t st) {
+  a.tile = tile_elements(kGatherA, kGatherB, a.N, a.Ka, a.Kb);
+  if (a.tile == 0) return cudaErrorInvalidValue;  // rows too wide to stage
+  const size_t smem = sizeof(uint32_t) * kWarpsPerBlock * kWarpSmemWords;
+  chunk_kernel<kBf16, kGatherA, kGatherB><<<grid, 32 * kWarpsPerBlock, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t launch_form(const ChunkArgs& a, dim3 grid, cudaStream_t st) {
+  if (a.col_a >= 0) return launch_chunks<kBf16, true, true>(a, grid, st);
+  if (a.col_b >= 0) return launch_chunks<kBf16, false, true>(a, grid, st);
+  return launch_chunks<kBf16, false, false>(a, grid, st);
+}
+
 }  // namespace
 
-// Launch both kernels on `stream`. `part` holds 2 * ceil(E / chunk) * Ka * Kb
+// Launch both kernels on `stream`. Form: col_a >= 0 gathers a = values *
+// A[coords[:, col_a]] (then col_b >= 0 too); col_a < 0 reads a as (E, Ka) rows
+// of A; likewise b from B with col_b. `coords` is (E, N) row-major and may be
+// null when neither is gathered. `part` holds 2 * ceil(E / chunk) * Ka * Kb
 // floats of scratch. Returns the CUDA error code of the launches (0 = ok).
-extern "C" int kron_segsum_launch(const int* rows, const float* a,
-                                  const float* b, float* z, float* part,
+extern "C" int kron_segsum_launch(const int* rows, const float* values,
+                                  const int* coords, const float* A,
+                                  const float* B, float* z, float* part,
                                   long long E, int num_rows, int Ka, int Kb,
-                                  int chunk, int bf16, void* stream) {
+                                  int N, int col_a, int col_b, int chunk,
+                                  int bf16, void* stream) {
   if (E <= 0 || num_rows < 0 || Ka <= 0 || Kb <= 0 || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  if ((col_a >= 0 && (col_b < 0 || values == nullptr)) ||
+      ((col_a >= 0 || col_b >= 0) && (coords == nullptr || N <= 0)) ||
+      col_a >= N || col_b >= N)
     return (int)cudaErrorInvalidValue;
   const int K = Ka * Kb;
   const long long pairs = (long long)Ka * ((Kb + kCols - 1) / kCols);
@@ -247,15 +481,12 @@ extern "C" int kron_segsum_launch(const int* rows, const float* a,
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  dim3 grid((unsigned)((nchunks + kWarpsPerBlock - 1) / kWarpsPerBlock),
-            (unsigned)pair_tiles);
-  const int threads = 32 * kWarpsPerBlock;
-  if (bf16) {
-    chunk_kernel<true><<<grid, threads, 0, st>>>(rows, a, b, z, part, E, nchunks, num_rows, Ka, Kb, chunk);
-  } else {
-    chunk_kernel<false><<<grid, threads, 0, st>>>(rows, a, b, z, part, E, nchunks, num_rows, Ka, Kb, chunk);
-  }
-  cudaError_t err = cudaGetLastError();
+  const ChunkArgs args{rows, values, coords, A, B, z, part, E, nchunks,
+                       num_rows, Ka, Kb, chunk, N, col_a, col_b, 0};
+  const dim3 grid((unsigned)((nchunks + kWarpsPerBlock - 1) / kWarpsPerBlock),
+                  (unsigned)pair_tiles);
+  const cudaError_t err = bf16 ? launch_form<true>(args, grid, st)
+                               : launch_form<false>(args, grid, st);
   if (err != cudaSuccess) return (int)err;
 
   dim3 grid2((unsigned)(2 * nchunks), (unsigned)col_tiles);
@@ -264,17 +495,19 @@ extern "C" int kron_segsum_launch(const int* rows, const float* a,
 }
 
 // (Z, Z @ X) on `stream`: kron_segsum_launch, then the row products. `x` is
-// (Ka*Kb, s) row-major and `zx` (num_rows, s); `z` zeroed and `part` as for
-// kron_segsum_launch. Returns the CUDA error code of the launches (0 = ok).
-extern "C" int kron_segsum_oracle_launch(const int* rows, const float* a,
-                                         const float* b, float* z, float* part,
-                                         const float* x, float* zx,
-                                         long long E, int num_rows, int Ka,
-                                         int Kb, int chunk, int s, int bf16,
-                                         void* stream) {
+// (Ka*Kb, s) row-major and `zx` (num_rows, s); the other arguments as for
+// kron_segsum_launch, `z` zeroed. Returns the CUDA error code (0 = ok).
+extern "C" int kron_segsum_oracle_launch(const int* rows, const float* values,
+                                         const int* coords, const float* A,
+                                         const float* B, float* z, float* part,
+                                         const float* x, float* zx, long long E,
+                                         int num_rows, int Ka, int Kb, int N,
+                                         int col_a, int col_b, int chunk, int s,
+                                         int bf16, void* stream) {
   if (s <= 0 || num_rows < 0) return (int)cudaErrorInvalidValue;
-  const int err = kron_segsum_launch(rows, a, b, z, part, E, num_rows, Ka, Kb,
-                                     chunk, bf16, stream);
+  const int err = kron_segsum_launch(rows, values, coords, A, B, z, part, E,
+                                     num_rows, Ka, Kb, N, col_a, col_b, chunk,
+                                     bf16, stream);
   if (err != 0 || num_rows == 0) return err;
   const long long blocks = ((long long)num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;

@@ -9,14 +9,22 @@ same bits: the same two kernels run) together with ``Z @ X`` for the first
 block-Lanczos panel X, from a third kernel that reads Z right after it is
 written.
 
+Both take the TPU function's own signature, per-element rows ``a`` and
+``b``. The main path calls ``kron_segsum_gather`` instead: the same kernels,
+reading each element's row id, value and coordinates and gathering the
+factor rows themselves, so the (E, Ka) and (E, Kb) operands are never
+materialised. Given the same ``a`` bits, both forms give the same Z bits.
+
 A tensor on the CPU goes to the plain version (``ref.kron_segsum_ref``,
-``ref.kron_segsum_oracle_ref``); a CUDA tensor goes to the kernel, and
-anything the kernel does not take raises. There is no admission gate and no
-fallback: the kernels take every row count, every width ``Ka * Kb``
-(K̂ = 1000 for 4-mode tensors at K = 10 included) and every panel width.
+``ref.kron_segsum_oracle_ref``, ``ref.kron_segsum_gather_ref``); a CUDA
+tensor goes to the kernel, and anything the kernel does not take raises.
+There is no admission gate and no fallback: the kernels take every row
+count, every panel width and every width the chunk walk can stage in
+shared memory (Ka + Kb up to about 1,250 floats, so K̂ = 1000 for 4-mode
+tensors at K = 10 included); a wider one raises.
 
 ``kron_segsum.launches`` and ``kron_segsum_oracle.launches`` count the
-calls that launched each kernel.
+calls that launched each kernel, in either form.
 """
 
 from __future__ import annotations
@@ -27,42 +35,52 @@ import torch
 
 from . import build, ref
 
-__all__ = ["kron_segsum", "kron_segsum_oracle", "CHUNK"]
+__all__ = ["kron_segsum", "kron_segsum_oracle", "kron_segsum_gather",
+           "CHUNK"]
 
 # elements per warp: large enough that the two partial slots per chunk are a
 # small share of the traffic, small enough to give the card many warps
 CHUNK = 1024
 
-_FN = None
-_ORACLE_FN = None
+_FNS = None
 
 
-def _launcher():
-    global _FN
-    if _FN is None:
-        fn = build.load("kron_segsum").kron_segsum_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
-def _oracle_launcher():
-    global _ORACLE_FN
-    if _ORACLE_FN is None:
-        fn = build.load("kron_segsum").kron_segsum_oracle_launch
+def _launchers():
+    global _FNS
+    if _FNS is None:
+        lib = build.load("kron_segsum")
+        fn = lib.kron_segsum_launch
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [
-            ctypes.c_int] * 6 + [ctypes.c_void_p]
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _ORACLE_FN = fn
-    return _ORACLE_FN
+        ofn = lib.kron_segsum_oracle_launch
+        ofn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 9 + [ctypes.c_void_p]
+        ofn.restype = ctypes.c_int
+        _FNS = (fn, ofn)
+    return _FNS
+
+
+def _check_precision(precision):
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"unknown precision {precision!r}")
+
+
+def _check_device(*ts):
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"operands on different devices: "
+                         f"{[str(t.device) for t in ts]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"kron_segsum runs on CUDA or CPU tensors, "
+                         f"not {dev}")
+    if dev.type == "cuda" and not all(t.is_contiguous() for t in ts):
+        raise ValueError("kron_segsum needs contiguous operands")
 
 
 def _check_operands(rows, a, b, precision):
-    """Shapes, types and devices both kernels take; returns (E, Ka, Kb)."""
-    if precision not in ("f32", "bf16"):
-        raise ValueError(f"unknown precision {precision!r}")
+    """Shapes, types and devices of the row form; returns (E, Ka, Kb)."""
+    _check_precision(precision)
     if rows.dim() != 1 or a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"expected rows (E,), a (E, Ka), b (E, Kb); got "
                          f"{tuple(rows.shape)}, {tuple(a.shape)}, "
@@ -76,16 +94,60 @@ def _check_operands(rows, a, b, precision):
             or b.dtype != torch.float32:
         raise TypeError(f"expected int32 rows and float32 a, b; got "
                         f"{rows.dtype}, {a.dtype}, {b.dtype}")
-    if not (rows.device == a.device == b.device):
-        raise ValueError(f"operands on different devices: {rows.device}, "
-                         f"{a.device}, {b.device}")
-    if rows.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"kron_segsum runs on CUDA or CPU tensors, "
-                         f"not {rows.device}")
-    if rows.device.type == "cuda" and not (
-            rows.is_contiguous() and a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("kron_segsum needs contiguous rows, a and b")
+    _check_device(rows, a, b)
     return E, Ka, Kb
+
+
+def _check_panel(X, K, dev):
+    if X.dim() != 2 or X.shape[0] != K or X.shape[1] < 1:
+        raise ValueError(f"expected X of shape ({K}, s) with s >= 1; got "
+                         f"{tuple(X.shape)}")
+    if X.dtype != torch.float32 or X.device != dev:
+        raise TypeError(f"expected float32 X on {dev}; got "
+                        f"{X.dtype} on {X.device}")
+    if dev.type == "cuda" and not X.is_contiguous():
+        raise ValueError("kron_segsum_oracle needs a contiguous X")
+
+
+def _run(rows, values, coords, A, B, col_a, col_b, E, Ka, Kb, num_rows, X,
+         precision):
+    """Launch the chunk walk and the fix-up (and, with X, the row
+    products) on the card; returns Z, or (Z, Z @ X). Counts the launch
+    under its kernel."""
+    dev = rows.device
+    K = Ka * Kb
+    z = torch.zeros((num_rows, K), dtype=torch.float32, device=dev)
+    if E == 0 or K == 0:  # the sum over no elements
+        return z if X is None else (z, torch.zeros(
+            (num_rows, X.shape[1]), dtype=torch.float32, device=dev))
+    zx = None if X is None else torch.empty(
+        (num_rows, X.shape[1]), dtype=torch.float32, device=dev)
+    part = torch.empty((2 * (-(-E // CHUNK)), K), dtype=torch.float32,
+                       device=dev)
+    N = 0 if coords is None else coords.shape[1]
+    head = (rows.data_ptr(), _ptr(values), _ptr(coords), A.data_ptr(),
+            B.data_ptr(), z.data_ptr(), part.data_ptr())
+    tail = (1 if precision == "bf16" else 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+    fn, ofn = _launchers()
+    if X is None:
+        rc = fn(*head, E, num_rows, Ka, Kb, N, col_a, col_b, CHUNK, *tail)
+    else:
+        rc = ofn(*head, X.data_ptr(), zx.data_ptr(), E, num_rows, Ka, Kb, N,
+                 col_a, col_b, CHUNK, X.shape[1], *tail)
+    if rc != 0:
+        raise RuntimeError(f"kron_segsum launch failed with CUDA error {rc} "
+                           f"(E={E}, Ka={Ka}, Kb={Kb}, N={N}, "
+                           f"s={None if X is None else X.shape[1]})")
+    if X is None:
+        kron_segsum.launches += 1
+        return z
+    kron_segsum_oracle.launches += 1
+    return z, zx
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def kron_segsum(
@@ -106,23 +168,8 @@ def kron_segsum(
     E, Ka, Kb = _check_operands(rows, a, b, precision)
     if rows.device.type == "cpu":
         return ref.kron_segsum_ref(rows, a, b, num_rows, precision)
-    out = torch.zeros((num_rows, Ka * Kb), dtype=torch.float32,
-                      device=rows.device)
-    if E == 0 or Ka * Kb == 0:
-        return out  # the sum over no elements
-    nchunks = -(-E // CHUNK)
-    part = torch.empty((2 * nchunks, Ka * Kb), dtype=torch.float32,
-                       device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _launcher()(rows.data_ptr(), a.data_ptr(), b.data_ptr(),
-                         out.data_ptr(), part.data_ptr(), E, num_rows, Ka,
-                         Kb, CHUNK, 1 if precision == "bf16" else 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"kron_segsum launch failed with CUDA error {rc} "
-                           f"(E={E}, Ka={Ka}, Kb={Kb})")
-    kron_segsum.launches += 1
-    return out
+    return _run(rows, None, None, a, b, -1, -1, E, Ka, Kb, num_rows, None,
+                precision)
 
 
 kron_segsum.launches = 0
@@ -144,37 +191,72 @@ def kron_segsum_oracle(
     Rows without elements are 0 in both outputs.
     """
     E, Ka, Kb = _check_operands(rows, a, b, precision)
-    K = Ka * Kb
-    if X.dim() != 2 or X.shape[0] != K or X.shape[1] < 1:
-        raise ValueError(f"expected X of shape ({K}, s) with s >= 1; got "
-                         f"{tuple(X.shape)}")
-    if X.dtype != torch.float32 or X.device != rows.device:
-        raise TypeError(f"expected float32 X on {rows.device}; got "
-                        f"{X.dtype} on {X.device}")
+    _check_panel(X, Ka * Kb, rows.device)
     if rows.device.type == "cpu":
         return ref.kron_segsum_oracle_ref(rows, a, b, num_rows, X, precision)
-    if not X.is_contiguous():
-        raise ValueError("kron_segsum_oracle needs a contiguous X")
-    s = X.shape[1]
-    z = torch.zeros((num_rows, K), dtype=torch.float32, device=rows.device)
-    if E == 0 or K == 0:  # the sum over no elements
-        return z, torch.zeros((num_rows, s), dtype=torch.float32,
-                              device=rows.device)
-    zx = torch.empty((num_rows, s), dtype=torch.float32, device=rows.device)
-    nchunks = -(-E // CHUNK)
-    part = torch.empty((2 * nchunks, K), dtype=torch.float32,
-                       device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _oracle_launcher()(
-            rows.data_ptr(), a.data_ptr(), b.data_ptr(), z.data_ptr(),
-            part.data_ptr(), X.data_ptr(), zx.data_ptr(), E, num_rows, Ka,
-            Kb, CHUNK, s, 1 if precision == "bf16" else 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"kron_segsum_oracle launch failed with CUDA "
-                           f"error {rc} (E={E}, Ka={Ka}, Kb={Kb}, s={s})")
-    kron_segsum_oracle.launches += 1
-    return z, zx
+    return _run(rows, None, None, a, b, -1, -1, E, Ka, Kb, num_rows, X,
+                precision)
 
 
 kron_segsum_oracle.launches = 0
+
+
+def kron_segsum_gather(
+    rows: torch.Tensor,  # (E,) int32, sorted ascending, ids in [0, num_rows)
+    coords: torch.Tensor,  # (E, N) int32, each element's coordinates
+    values: torch.Tensor | None,  # (E,) float32; None when lead is ``a``
+    lead: torch.Tensor,  # (L, Ka) factor, or (E, Ka) a when lead_col is None
+    last: torch.Tensor,  # (L, Kb) factor
+    lead_col: int | None,
+    last_col: int,
+    num_rows: int,
+    *,
+    X: torch.Tensor | None = None,  # (Ka*Kb, s) float32 first oracle panel
+    precision: str = "f32",
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """``kron_segsum`` with the factor rows gathered per element.
+
+    ``a[e] = values[e] * lead[coords[e, lead_col]]`` (one f32 multiply per
+    entry) and ``b[e] = last[coords[e, last_col]]``; with ``lead_col=None``
+    ``lead`` is the per-element ``a`` itself (values folded in, ``values``
+    unused) and only b is gathered. Returns Z, or ``(Z, Z @ X)`` when a
+    panel X is given, exactly as ``kron_segsum``/``kron_segsum_oracle``
+    give them on ``(rows, a, b)``. Coordinates must index their factors'
+    rows; elements with value 0 add nothing.
+    """
+    _check_precision(precision)
+    if rows.dim() != 1 or coords.dim() != 2 or lead.dim() != 2 \
+            or last.dim() != 2:
+        raise ValueError(f"expected rows (E,), coords (E, N) and 2-D "
+                         f"factors; got {tuple(rows.shape)}, "
+                         f"{tuple(coords.shape)}, {tuple(lead.shape)}, "
+                         f"{tuple(last.shape)}")
+    E, N = coords.shape
+    gather_a = lead_col is not None
+    if rows.shape[0] != E or (gather_a and (
+            values is None or tuple(values.shape) != (E,))) \
+            or (not gather_a and lead.shape[0] != E):
+        raise ValueError(f"element counts differ: rows {rows.shape[0]}, "
+                         f"coords {E}, values {None if values is None else tuple(values.shape)}, "
+                         f"lead {tuple(lead.shape)} (lead_col={lead_col})")
+    if not 0 <= last_col < N or (gather_a and not 0 <= lead_col < N):
+        raise ValueError(f"columns {lead_col}, {last_col} outside the "
+                         f"{N} coordinates")
+    floats = [lead, last] + ([values] if gather_a else [])
+    if rows.dtype != torch.int32 or coords.dtype != torch.int32 \
+            or any(t.dtype != torch.float32 for t in floats):
+        raise TypeError(f"expected int32 rows and coords and float32 "
+                        f"values and factors; got {rows.dtype}, "
+                        f"{coords.dtype}, {[t.dtype for t in floats]}")
+    _check_device(rows, coords, *floats)
+    Ka, Kb = lead.shape[1], last.shape[1]
+    if X is not None:
+        _check_panel(X, Ka * Kb, rows.device)
+    if rows.device.type == "cpu":
+        z = ref.kron_segsum_gather_ref(rows, coords, values, lead, last,
+                                       lead_col, last_col, num_rows,
+                                       precision)
+        return z if X is None else (z, z @ X)
+    return _run(rows, values if gather_a else None, coords, lead, last,
+                lead_col if gather_a else -1, last_col, E, Ka, Kb, num_rows,
+                X, precision)

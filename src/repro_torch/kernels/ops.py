@@ -8,13 +8,16 @@ Public entry points used by the rest of the port:
     and for pre-sorted row ids;
   * ``penultimate_local_oracle`` / ``penultimate_sorted_oracle`` — the fused
     build with the first oracle panel product, ``(Z, Z @ X)``;
-  * ``oracle_pair(Z, x, y)`` — the fused Lanczos oracle.
+  * ``oracle_pair(Z, x, y, P)`` — the fused Lanczos oracle, over P stacked
+    ranks.
 
-The wrappers prepare the kernel's layout (fold the leading Kronecker levels
-into ``a``, sort elements by row) and hand it to the kernel wrappers, which
-choose by device: the plain version for CPU tensors, the CUDA kernel for
-CUDA tensors. The reference's VMEM admission gate and its quiet fallback
-to the plain path are gone: the CUDA kernel takes every shape on the path.
+The wrappers prepare the kernel's layout (sort elements by row; for N >= 4
+fold the leading Kronecker levels into ``a``) and hand it to the gather
+form of the Z-build kernels, which reads each element's coordinates and
+gathers the factor rows itself. The kernel wrappers choose by device: the
+plain version for CPU tensors, the CUDA kernel for CUDA tensors. The
+reference's VMEM admission gate and its quiet fallback to the plain path
+are gone: the CUDA kernel takes every shape on the path.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Sequence
 
 import torch
 
-from .kron_segsum import kron_segsum, kron_segsum_oracle
+from .kron_segsum import kron_segsum_gather
 from .oracle_fused import oracle_pair as _oracle_pair_kernel
 
 __all__ = ["penultimate", "penultimate_local", "penultimate_sorted",
@@ -42,6 +45,23 @@ def split_kron_dims(core_dims: Sequence[int], mode: int) -> tuple[int, int]:
     return Ka, int(core_dims[last])
 
 
+def _lead_a(
+    coords: torch.Tensor,
+    values: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    lead: Sequence[int],
+) -> torch.Tensor:
+    """a = val * kron(rows of the leading factors), (nnz, Ka)."""
+    nnz = values.shape[0]
+    a = values[:, None]
+    for j in lead:
+        rows = factors[j].index_select(0, coords[:, j])
+        # explicit width (not -1): must also reshape for nnz == 0
+        a = (a[:, :, None] * rows[:, None, :]).reshape(
+            nnz, a.shape[1] * rows.shape[1])
+    return a.contiguous()
+
+
 def _split_ab(
     coords: torch.Tensor,
     values: torch.Tensor,
@@ -50,18 +70,31 @@ def _split_ab(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fold modes j != mode into (a, b): a = val * kron(leading rows),
     b = rows of the last non-mode factor (the widest kron level stays in the
-    kernel's hot loop)."""
-    other = [j for j in range(len(factors)) if j != mode]
-    *lead, last = other
-    nnz = values.shape[0]
-    a = values[:, None]
-    for j in lead:
-        rows = factors[j].index_select(0, coords[:, j])
-        # explicit width (not -1): must also reshape for nnz == 0
-        a = (a[:, :, None] * rows[:, None, :]).reshape(
-            nnz, a.shape[1] * rows.shape[1])
+    kernel's hot loop). The row form's operands; the main path gathers them
+    in the kernel instead (``_gathered``)."""
+    *lead, last = [j for j in range(len(factors)) if j != mode]
     b = factors[last].index_select(0, coords[:, last])
-    return a.contiguous(), b.contiguous()
+    return _lead_a(coords, values, factors, lead), b.contiguous()
+
+
+def _gathered(coords, values, local_rows, factors, mode, num_rows, X,
+              precision):
+    """The gather form of the Z-build: with one leading factor (N = 3) the
+    kernel gathers both factors' rows; with more, the leading levels are
+    folded into ``a`` here and only the last factor is gathered."""
+    *lead, last = [j for j in range(len(factors)) if j != mode]
+    rows = local_rows.to(torch.int32).contiguous()
+    coords = coords.to(torch.int32).contiguous()
+    values = values.to(torch.float32).contiguous()
+    f_last = factors[last].to(torch.float32).contiguous()
+    if len(lead) == 1:
+        return kron_segsum_gather(
+            rows, coords, values, factors[lead[0]].to(torch.float32)
+            .contiguous(), f_last, lead[0], last, num_rows, X=X,
+            precision=precision)
+    a = _lead_a(coords, values, factors, lead).to(torch.float32)
+    return kron_segsum_gather(rows, coords, None, a, f_last, None, last,
+                              num_rows, X=X, precision=precision)
 
 
 def penultimate_sorted(
@@ -75,10 +108,8 @@ def penultimate_sorted(
     precision: str = "f32",
 ) -> torch.Tensor:
     """Z for elements already sorted by ``local_rows`` (ascending)."""
-    a, b = _split_ab(coords, values, factors, mode)
-    return kron_segsum(local_rows.to(torch.int32).contiguous(),
-                       a.to(torch.float32), b.to(torch.float32),
-                       num_local_rows, precision=precision)
+    return _gathered(coords, values, local_rows, factors, mode,
+                     num_local_rows, None, precision)
 
 
 def penultimate_local(
@@ -112,11 +143,8 @@ def penultimate_sorted_oracle(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused ``(Z, Z @ X)`` for elements already sorted by ``local_rows``:
     one ``kron_segsum_oracle`` launch on the card."""
-    a, b = _split_ab(coords, values, factors, mode)
-    return kron_segsum_oracle(local_rows.to(torch.int32).contiguous(),
-                              a.to(torch.float32), b.to(torch.float32),
-                              num_local_rows, X.contiguous(),
-                              precision=precision)
+    return _gathered(coords, values, local_rows, factors, mode,
+                     num_local_rows, X.contiguous(), precision)
 
 
 def penultimate_local_oracle(
@@ -154,7 +182,9 @@ def penultimate(
 
 def oracle_pair(
     Z: torch.Tensor, x: torch.Tensor | None, y: torch.Tensor | None,
+    P: int | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
-    """(Z @ x, Zᵀ @ y): the kernel for CUDA tensors, the plain version for
-    CPU tensors. A None operand gives a None product."""
-    return _oracle_pair_kernel(Z, x, y)
+    """(Z @ x, Zᵀ @ y), with ``P`` stacked ranks each rank's Z_pᵀ y_p: the
+    kernel for CUDA tensors, the plain version for CPU tensors. A None
+    operand gives a None product."""
+    return _oracle_pair_kernel(Z, x, y, P)

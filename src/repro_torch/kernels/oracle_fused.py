@@ -1,11 +1,19 @@
 """Wrapper of the CUDA ``oracle_pair`` kernel (``csrc/oracle_pair.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/oracle_fused.py::oracle_pair``:
-``(Z @ x, Zᵀ @ y)`` in one pass over Z, for vectors or width-``s`` panels;
-either half may be left out.
+``(Z @ x, Zᵀ @ y)`` in one launch over Z, for vectors or width-``s``
+panels; either half may be left out. With ``P`` the call takes P stacked
+ranks (the reference's per-rank ``shard_map`` body, written out as a batch
+dimension): Z is ``(P*R, K)``, y ``(P, R[, s])`` and the second product
+``(P, K[, s])``, each rank's ``Z_pᵀ y_p``.
+
 A tensor on the CPU goes to the plain version (``ref.oracle_pair_ref``); a
 CUDA tensor goes to the kernel, and anything the kernel does not take
-raises.
+raises. The per-call host work is kept small: shape checks on attributes,
+one ``torch.empty`` per output, the current stream's raw handle (the one
+``torch.cuda.current_stream(dev).cuda_stream`` gives, without building a
+``Stream`` object on every call), and the kernel's reduction scratch kept
+here per device and reused.
 
 ``oracle_pair.launches`` counts the calls that launched the kernel.
 """
@@ -20,87 +28,127 @@ from . import build, ref
 
 __all__ = ["oracle_pair"]
 
-# the kernel stages rb rows of Z and y in the default 48 KB of shared memory
-_SMEM_FLOATS = 48 * 1024 // 4
-_MAX_ROWS_PER_BLOCK = 64
-
 _FN = None
+_GEOMETRY = {}  # (device index, R, K, s, with y) -> (rb, bpr, groups)
+_SCRATCH = {}  # device index -> (part, gpart, ticket), grown on demand
 
 
 def _launcher():
     global _FN
     if _FN is None:
-        fn = build.load("oracle_pair").oracle_pair_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        lib = build.load("oracle_pair")
+        fn = lib.oracle_pair_launch
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
+        geo = lib.oracle_pair_geometry
+        geo.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
+        geo.restype = ctypes.c_int
+        _FN = (fn, geo)
     return _FN
 
 
-def _rows_per_block(K: int, s: int) -> int:
-    """Rows of Z one block stages: as many as fit, at most 64."""
-    return min(_MAX_ROWS_PER_BLOCK, _SMEM_FLOATS // (K + s))
+def _geometry(dev: torch.device, R: int, K: int, s: int, with_y: bool
+              ) -> tuple[int, int, int]:
+    """(rows per block, blocks per rank, reduction groups per rank)."""
+    key = (dev.index, R, K, s, with_y)
+    got = _GEOMETRY.get(key)
+    if got is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        out = [ctypes.c_int() for _ in range(3)]
+        if _launcher()[1](R, K, s, sms, int(with_y),
+                          *(ctypes.byref(o) for o in out)):
+            raise ValueError(f"oracle_pair stages whole rows of Z in shared "
+                             f"memory: K = {K} with s = {s} is too wide")
+        got = _GEOMETRY[key] = tuple(o.value for o in out)
+    return got
+
+
+def _scratch(dev: torch.device, n_part: int, n_gpart: int, n_ticket: int):
+    """Partials, group sums and zeroed tickets, at least these sizes. The
+    kernel leaves its tickets zero, so a buffer is zeroed only when made."""
+    have = _SCRATCH.get(dev.index)
+    if have is None or have[0].numel() < n_part or have[1].numel() < n_gpart \
+            or have[2].numel() < n_ticket:
+        n_part = max(n_part, 0 if have is None else have[0].numel())
+        n_gpart = max(n_gpart, 0 if have is None else have[1].numel())
+        n_ticket = max(n_ticket, 0 if have is None else have[2].numel())
+        have = _SCRATCH[dev.index] = (
+            torch.empty(n_part, dtype=torch.float32, device=dev),
+            torch.empty(n_gpart, dtype=torch.float32, device=dev),
+            torch.zeros(n_ticket, dtype=torch.int32, device=dev))
+    return have
 
 
 def oracle_pair(
-    Z: torch.Tensor,  # (R, Khat) float32
-    x: torch.Tensor | None,  # (Khat,) or (Khat, s)
-    y: torch.Tensor | None,  # (R,) or (R, s)
+    Z: torch.Tensor,  # (P*R, K) float32
+    x: torch.Tensor | None,  # (K,) or (K, s)
+    y: torch.Tensor | None,  # (R,) / (R, s), or with P: (P, R) / (P, R, s)
+    P: int | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
-    """Returns (Z @ x, Zᵀ @ y); both operands share vector-ness and width.
+    """Returns ``(Z @ x, Zᵀ @ y)``; x and y share vector-ness and width.
 
     Either operand may be None, and then so is its product and the kernel
-    skips that half: the Lanczos loop asks for one product at a time.
+    skips that half: the Lanczos loop asks for one product at a time. With
+    ``P`` ranks stacked in Z, y carries a leading rank dimension and the
+    second product is ``(P, K[, s])``; Z @ x is over all rows as without P.
     """
-    given = [v for v in (x, y) if v is not None]
-    if Z.dim() != 2 or not given or given[0].dim() not in (1, 2) \
-            or given[-1].dim() != given[0].dim():
-        raise ValueError(f"expected Z (R, K) with x, y both vectors or both "
-                         f"panels (one may be None); got {tuple(Z.shape)}, "
-                         f"{_shape(x)}, {_shape(y)}")
-    R, K = Z.shape
-    vec = given[0].dim() == 1
-    s = 1 if vec else given[0].shape[1]
-    if (x is not None and (x.shape[0] != K or (not vec and x.shape[1] != s))) \
-            or (y is not None
-                and (y.shape[0] != R or (not vec and y.shape[1] != s))):
-        raise ValueError(f"shapes do not match: Z {tuple(Z.shape)}, "
+    if Z.dim() != 2 or (x is None and y is None):
+        raise ValueError(f"expected Z (R, K) and at least one of x, y; got "
+                         f"{tuple(Z.shape)}, {_shape(x)}, {_shape(y)}")
+    RP, K = Z.shape
+    nP = 1 if P is None else int(P)
+    if nP < 1 or RP % nP:
+        raise ValueError(f"{RP} rows of Z do not split into P={P} ranks")
+    R = RP // nP
+    lead = () if P is None else (nP,)
+    given = x if x is not None else y
+    vec = given.dim() == (1 if x is not None else 1 + len(lead))
+    s = 1 if vec else given.shape[-1]
+    tail = () if vec else (s,)
+    if (x is not None and tuple(x.shape) != (K, *tail)) or \
+            (y is not None and tuple(y.shape) != (*lead, R, *tail)):
+        raise ValueError(f"shapes do not match: Z {tuple(Z.shape)}, P={P}, "
                          f"x {_shape(x)}, y {_shape(y)}")
-    if any(v.dtype != torch.float32 for v in (Z, *given)):
+    if Z.dtype != torch.float32 or (x is not None and x.dtype != Z.dtype) \
+            or (y is not None and y.dtype != Z.dtype):
         raise TypeError(f"expected float32 operands; got {Z.dtype}, "
-                        f"{[v.dtype for v in given]}")
-    if any(v.device != Z.device for v in given):
-        raise ValueError(f"operands on different devices: {Z.device}, "
-                         f"{[v.device for v in given]}")
-    if Z.device.type == "cpu":
-        return ref.oracle_pair_ref(Z, x, y)
-    if Z.device.type != "cuda":
+                        f"{None if x is None else x.dtype}, "
+                        f"{None if y is None else y.dtype}")
+    dev = Z.device
+    if (x is not None and x.device != dev) or \
+            (y is not None and y.device != dev):
+        raise ValueError(f"operands on different devices: {dev}, "
+                         f"{None if x is None else x.device}, "
+                         f"{None if y is None else y.device}")
+    if dev.type == "cpu":
+        return ref.oracle_pair_ref(Z, x, y, P)
+    if dev.type != "cuda":
         raise ValueError(f"oracle_pair runs on CUDA or CPU tensors, "
-                         f"not {Z.device}")
-    if not all(v.is_contiguous() for v in (Z, *given)):
+                         f"not {dev}")
+    if not (Z.is_contiguous() and (x is None or x.is_contiguous())
+            and (y is None or y.is_contiguous())):
         raise ValueError("oracle_pair needs contiguous Z, x and y")
     xo = None if x is None else torch.empty(
-        (R,) if vec else (R, s), dtype=torch.float32, device=Z.device)
+        (RP, *tail), dtype=torch.float32, device=dev)
     yo = None if y is None else torch.empty(
-        (K,) if vec else (K, s), dtype=torch.float32, device=Z.device)
+        (*lead, K, *tail), dtype=torch.float32, device=dev)
     if R == 0 or K == 0 or s == 0:
         return (None if xo is None else xo.zero_(),
                 None if yo is None else yo.zero_())
-    rb = _rows_per_block(K, s)
-    if rb < 1:
-        raise ValueError(f"oracle_pair stages whole rows of Z in shared "
-                         f"memory: K + s = {K + s} floats exceed "
-                         f"{_SMEM_FLOATS}")
-    part = None if y is None else torch.empty(
-        (-(-R // rb), K, s), dtype=torch.float32, device=Z.device)
-    with torch.cuda.device(Z.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _launcher()(Z.data_ptr(), _ptr(x), _ptr(y), _ptr(xo), _ptr(yo),
-                         _ptr(part), R, K, s, rb, stream)
+    rb, bpr, groups = _geometry(dev, R, K, s, y is not None)
+    part = gpart = ticket = None
+    if y is not None:
+        n = K * s
+        part, gpart, ticket = _scratch(dev, nP * bpr * n, nP * groups * n,
+                                       nP * (groups + 1))
+    rc = _launcher()[0](
+        Z.data_ptr(), _ptr(x), _ptr(y), _ptr(xo), _ptr(yo), _ptr(part),
+        _ptr(gpart), _ptr(ticket), R, K, s, nP, rb, bpr,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"oracle_pair launch failed with CUDA error {rc} "
-                           f"(R={R}, K={K}, s={s})")
+                           f"(R={R}, K={K}, s={s}, P={nP})")
     oracle_pair.launches += 1
     return xo, yo
 

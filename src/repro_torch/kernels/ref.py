@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["kron_segsum_ref", "kron_segsum_oracle_ref", "oracle_pair_ref"]
+__all__ = ["kron_segsum_ref", "kron_segsum_oracle_ref", "kron_segsum_gather_ref",
+           "oracle_pair_ref"]
 
 
 def kron_segsum_ref(
@@ -37,6 +38,29 @@ def kron_segsum_ref(
     return out.index_add_(0, rows.long(), contribs)
 
 
+def kron_segsum_gather_ref(
+    rows: torch.Tensor,
+    coords: torch.Tensor,
+    values: torch.Tensor | None,
+    lead: torch.Tensor,
+    last: torch.Tensor,
+    lead_col: int | None,
+    last_col: int,
+    num_rows: int,
+    precision: str = "f32",
+) -> torch.Tensor:
+    """``kron_segsum`` with the factor rows gathered per element:
+    ``a = values * lead[coords[:, lead_col]]`` (one f32 multiply per
+    entry), or ``lead`` itself when ``lead_col`` is None, and
+    ``b = last[coords[:, last_col]]``."""
+    if lead_col is None:
+        a = lead
+    else:
+        a = values[:, None] * lead.index_select(0, coords[:, lead_col].long())
+    b = last.index_select(0, coords[:, last_col].long())
+    return kron_segsum_ref(rows, a, b, num_rows, precision)
+
+
 def kron_segsum_oracle_ref(
     rows: torch.Tensor,
     a: torch.Tensor,
@@ -51,10 +75,19 @@ def kron_segsum_oracle_ref(
 
 
 def oracle_pair_ref(
-    Z: torch.Tensor,  # (R, Khat)
+    Z: torch.Tensor,  # (P*R, Khat)
     x: torch.Tensor | None,  # (Khat,) or (Khat, s) panel
-    y: torch.Tensor | None,  # (R,) or (R, s) panel
+    y: torch.Tensor | None,  # (R[, s]), or with P: (P, R[, s])
+    P: int | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
-    """The Lanczos oracle pair: (Z @ x, Z.T @ y); a None operand gives a
-    None product."""
-    return (None if x is None else Z @ x), (None if y is None else Z.T @ y)
+    """The Lanczos oracle pair: (Z @ x, Zᵀ @ y); a None operand gives a
+    None product. With ``P`` stacked ranks, the second product is each
+    rank's ``Z_pᵀ y_p``, ``(P, Khat[, s])``, taken rank by rank exactly as
+    a single call on that rank's rows takes it."""
+    xo = None if x is None else Z @ x
+    if y is None:
+        return xo, None
+    if P is None:
+        return xo, Z.T @ y
+    Zs = Z.view(int(P), -1, Z.shape[1])
+    return xo, torch.stack([Zp.T @ yp for Zp, yp in zip(Zs, y)])

@@ -215,3 +215,96 @@ def test_dist_hooi_on_card_matches_cpu(cuda, path):
     # a rerun on the card is bitwise equal: no float atomics anywhere
     _, st_again = dist_hooi(t, (5, 5, 5), 4, **kw)
     assert st_again.fits == st_g.fits
+
+
+def _gather_inputs(seed, shape, core, mode, device, pad=0, hub=0.0):
+    """Elements sorted by the mode's rows on the card, with ``pad`` padding
+    elements (value 0, coordinates 0, the last row) at the end; ``hub``
+    puts that share of the elements in one slice of the mode."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    nnz = 20_000
+    coords = torch.stack([torch.randint(0, L, (nnz,), generator=g)
+                          for L in shape], 1)
+    if hub:
+        coords[torch.rand(nnz, generator=g) < hub, mode] = shape[mode] // 3
+    coords = coords[torch.argsort(coords[:, mode], stable=True)]
+    values = torch.randn(nnz, generator=g)
+    rows = coords[:, mode].clone()
+    if pad:
+        coords = torch.cat([coords, torch.zeros((pad, len(shape)),
+                                                dtype=coords.dtype)])
+        values = torch.cat([values, torch.zeros(pad)])
+        rows = torch.cat([rows, rows[-1:].expand(pad)])
+    factors = hooi.random_factors(shape, core, make_key(seed), device)
+    return (coords.to(torch.int32).to(device), values.to(device),
+            rows.to(torch.int32).to(device), factors)
+
+
+@pytest.mark.parametrize("case", [
+    dict(shape=(300, 200, 100), mode=0),
+    dict(shape=(300, 200, 100), mode=1),
+    dict(shape=(300, 200, 100), mode=2),
+    dict(shape=(300, 200, 100), mode=0, hub=0.5),   # hub row over chunks
+    dict(shape=(300, 200, 100), mode=2, pad=3000),  # padded partition
+    dict(shape=(60, 50, 40, 30), mode=1),           # K_hat = 1000
+], ids=["m0", "m1", "m2", "hub", "padded", "4mode"])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_kron_segsum_gather_bitwise_row_form(cuda, case, precision):
+    """The gather form's Z (and ZX) is the row form's on the host's
+    ``_split_ab`` operands bit for bit, and within 2e-4 of the plain
+    version; reruns bitwise equal."""
+    shape, mode = case["shape"], case["mode"]
+    core = (10,) * len(shape)
+    coords, values, rows, f = _gather_inputs(
+        7, shape, core, mode, cuda, pad=case.get("pad", 0),
+        hub=case.get("hub", 0.0))
+    R = shape[mode]
+    Khat = 10 ** (len(shape) - 1)
+    X = torch.randn((Khat, 8), generator=torch.Generator().manual_seed(3)
+                    ).to(cuda)
+    counts = (kron_segsum.launches, kron_segsum_oracle.launches)
+    z = ops.penultimate_sorted(coords, values, rows, f, mode, R,
+                               precision=precision)
+    z2 = ops.penultimate_sorted(coords, values, rows, f, mode, R,
+                                precision=precision)
+    zo, zx = ops.penultimate_sorted_oracle(coords, values, rows, f, mode, R,
+                                           X, precision=precision)
+    torch.cuda.synchronize()
+    assert (kron_segsum.launches, kron_segsum_oracle.launches) == (
+        counts[0] + 2, counts[1] + 1)
+    a, b = ops._split_ab(coords, values, f, mode)
+    want_z = kron_segsum(rows, a, b, R, precision=precision)
+    want_zo, want_zx = kron_segsum_oracle(rows, a, b, R, X,
+                                          precision=precision)
+    assert torch.equal(z, want_z) and torch.equal(z, z2)
+    assert torch.equal(zo, z) and torch.equal(zo, want_zo)
+    assert torch.equal(zx, want_zx)
+    assert _rel_err(z, ref.kron_segsum_ref(rows, a, b, R, precision)) <= 2e-4
+
+
+@pytest.mark.parametrize("P,R,K,s", [(4, 7206, 100, 8), (4, 3024, 100, 1),
+                                     (3, 500, 37, 5), (2, 40, 1000, 16),
+                                     (1, 28818, 100, 1)])
+def test_oracle_pair_stacked_bitwise_single_calls(cuda, P, R, K, s):
+    """A stacked call gives each rank the bits of a single call on that
+    rank's rows, within 2e-4 of the plain version; reruns bitwise."""
+    g = torch.Generator(device="cpu").manual_seed(P + R + K + s)
+    tail = () if s == 1 else (s,)
+    Z = torch.randn((P * R, K), generator=g).to(cuda)
+    y = torch.randn((P, R) + tail, generator=g).to(cuda)
+    x = torch.randn((K,) + tail, generator=g).to(cuda)
+    before = oracle_pair.launches
+    got = oracle_pair(Z, None, y, P)[1]
+    again = oracle_pair(Z, None, y, P)[1]
+    gx = oracle_pair(Z, x, None)[0]
+    torch.cuda.synchronize()
+    assert oracle_pair.launches == before + 3
+    assert tuple(got.shape) == (P, K) + tail
+    assert torch.equal(got, again)
+    want = ref.oracle_pair_ref(Z, None, y, P)[1]
+    assert _rel_err(got, want) <= 2e-4
+    assert _rel_err(gx, Z @ x) <= 2e-4
+    for p in range(P):
+        Zp = Z[p * R:(p + 1) * R]
+        assert torch.equal(got[p], oracle_pair(Zp, None, y[p])[1])
+        assert torch.equal(gx[p * R:(p + 1) * R], oracle_pair(Zp, x, None)[0])

@@ -35,7 +35,12 @@ from test_torch_hooi import (assert_core_energy_matches, assert_fits_match,
 CORE = {"lowrank_tensor": (2, 2, 2), "skewed_tensor": (4, 4, 4),
         "small_tensor": (3, 3, 3)}
 VARIANTS = {"vector": {},
-            "block4_fused": dict(lanczos_block=4, fused_zbuild=True)}
+            "block4_fused": dict(lanczos_block=4, fused_zbuild=True),
+            # the port's batched oracle_pair over the stacked ranks (its
+            # plain version on the CPU); the reference keeps its plain
+            # products, which compute the same function
+            "block4_fused_oracle": dict(lanczos_block=4, fused_zbuild=True,
+                                        use_fused_oracle=True)}
 
 
 def _port(t):
@@ -66,9 +71,10 @@ def test_p4_matches_reference(request, fixture, path, backend, variant):
     t = request.getfixturevalue(fixture)
     core = CORE[fixture]
     kw = VARIANTS[variant]
+    ref_kw = {k: v for k, v in kw.items() if k != "use_fused_oracle"}
     ref_dec, ref_st = ref_dist_hooi(t, core, 4, scheme="lite",
                                     n_invocations=3, path=path, seed=0,
-                                    use_kernel=False, **kw)
+                                    use_kernel=False, **ref_kw)
     init = ref_random_factors(t.shape, core, jax.random.PRNGKey(0))
     dec, st = dist_hooi(_port(t), core, 4, scheme="lite", n_invocations=3,
                         path=path, seed=0, device="cpu", draw=jax_draws(0),

@@ -386,3 +386,179 @@ def test_penultimate_oracle_matches_reference(N, mode):
     for g, ga, w in zip(got, got_any, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
         assert torch.equal(g, ga)
+
+
+# ------------------------------------------- kron_segsum, gather form
+def _gather_case(seed, shape, core, mode, pad=0):
+    """Elements sorted by the mode's rows, numpy, with ``pad`` padding
+    elements (value 0, coordinates 0, the last row) at the end, as the
+    distributed partitions pad each rank."""
+    rng = np.random.default_rng(seed)
+    nnz = 300
+    coords = np.stack([rng.integers(0, L, nnz) for L in shape], 1)
+    coords = coords[np.argsort(coords[:, mode], kind="stable")]
+    values = rng.standard_normal(nnz)
+    if pad:
+        coords = np.concatenate([coords, np.zeros((pad, len(shape)),
+                                                  coords.dtype)])
+        values = np.concatenate([values, np.zeros(pad)])
+    rows = coords[:, mode].copy()
+    if pad:
+        rows[-pad:] = rows[nnz - 1]
+    jf, tf = _factors(shape, core, seed)
+    return (coords.astype(np.int32), values.astype(np.float32),
+            rows.astype(np.int32), jf, tf)
+
+
+def _gather_port(coords, values, rows, tf, mode, R, precision):
+    """The port's gather form as ``ops`` calls it: both factors gathered at
+    N = 3, the leading levels folded into ``a`` at N >= 4."""
+    from repro_torch.kernels.kron_segsum import kron_segsum_gather
+
+    *lead, last = [j for j in range(len(tf)) if j != mode]
+    tc, tv, tr = (torch.from_numpy(x) for x in (coords, values, rows))
+    if len(lead) == 1:
+        return kron_segsum_gather(tr, tc, tv, tf[lead[0]], tf[last], lead[0],
+                                  last, R, precision=precision)
+    a = ops._lead_a(tc, tv, tf, lead)
+    return kron_segsum_gather(tr, tc, None, a, tf[last], None, last, R,
+                              precision=precision)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("N,mode", [(3, 0), (3, 1), (3, 2),
+                                    (4, 0), (4, 1), (4, 2), (4, 3)])
+def test_kron_segsum_gather_matches_reference_split(N, mode, precision):
+    """The gather form's plain version against the reference's
+    ``_split_ab`` and ``kron_segsum_ref``, every mode of 3- and 4-mode
+    tensors, f32 and the bf16 contract, within 1e-5 of the largest
+    output."""
+    shape = (9, 8, 7, 6)[:N]
+    core = (3, 4, 2, 5)[:N]
+    coords, values, rows, jf, tf = _gather_case(21 + mode, shape, core, mode)
+    R = shape[mode]
+    got = _gather_port(coords, values, rows, tf, mode, R, precision).numpy()
+    a, b = ref_ops._split_ab(jnp.asarray(coords), jnp.asarray(values), jf,
+                             mode)
+    want = np.asarray(jax_ref.kron_segsum_ref(jnp.asarray(rows), a, b, R,
+                                              precision=precision))
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("N", [3, 4])
+def test_kron_segsum_gather_padding_adds_nothing(N):
+    """Padding elements (value 0, coordinates 0) gather row 0 of each
+    factor and add nothing: Z equals the unpadded reference's."""
+    shape = (9, 8, 7, 6)[:N]
+    core = (3, 3, 3, 3)[:N]
+    mode = 1
+    coords, values, rows, jf, tf = _gather_case(5, shape, core, mode, pad=37)
+    R = shape[mode]
+    got = _gather_port(coords, values, rows, tf, mode, R, "f32").numpy()
+    real = slice(0, len(values) - 37)
+    a, b = ref_ops._split_ab(jnp.asarray(coords[real]),
+                             jnp.asarray(values[real]), jf, mode)
+    want = np.asarray(jax_ref.kron_segsum_ref(jnp.asarray(rows[real]), a, b,
+                                              R))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_kron_segsum_gather_equals_row_form_on_cpu():
+    """On the CPU the gather form gives the row form's bits on the host's
+    ``_split_ab`` operands (as the kernel does on the card), with and
+    without a panel."""
+    from repro_torch.kernels.kron_segsum import kron_segsum_gather
+
+    coords, values, rows, _, tf = _gather_case(8, (9, 8, 7), (3, 4, 2), 2)
+    tc, tv, tr = (torch.from_numpy(x) for x in (coords, values, rows))
+    X = torch.randn((12, 3), generator=torch.Generator().manual_seed(1))
+    a, b = ops._split_ab(tc, tv, tf, 2)
+    z = kron_segsum_gather(tr, tc, tv, tf[0], tf[1], 0, 1, 7)
+    zo, zx = kron_segsum_gather(tr, tc, tv, tf[0], tf[1], 0, 1, 7, X=X)
+    assert torch.equal(z, kron_segsum(tr, a, b, 7))
+    wz, wzx = kron_segsum_oracle(tr, a, b, 7, X)
+    assert torch.equal(zo, wz) and torch.equal(zx, wzx)
+
+
+def test_kron_segsum_gather_wrapper_checks():
+    from repro_torch.kernels.kron_segsum import kron_segsum_gather
+
+    coords, values, rows, _, tf = _gather_case(9, (9, 8, 7), (3, 4, 2), 0)
+    tc, tv, tr = (torch.from_numpy(x) for x in (coords, values, rows))
+    with pytest.raises(ValueError):  # column outside the coordinates
+        kron_segsum_gather(tr, tc, tv, tf[1], tf[2], 1, 3, 9)
+    with pytest.raises(ValueError):  # a gathered lead needs values
+        kron_segsum_gather(tr, tc, None, tf[1], tf[2], 1, 2, 9)
+    with pytest.raises(ValueError):  # element counts
+        kron_segsum_gather(tr[:-1], tc, tv, tf[1], tf[2], 1, 2, 9)
+    with pytest.raises(TypeError):
+        kron_segsum_gather(tr, tc.long(), tv, tf[1], tf[2], 1, 2, 9)
+    with pytest.raises(TypeError):
+        kron_segsum_gather(tr, tc, tv.double(), tf[1], tf[2], 1, 2, 9)
+    with pytest.raises(ValueError):
+        kron_segsum_gather(tr, tc, tv, tf[1], tf[2], 1, 2, 9,
+                           precision="fp8")
+    with pytest.raises(ValueError):  # panel of the wrong height
+        kron_segsum_gather(tr, tc, tv, tf[1], tf[2], 1, 2, 9,
+                           X=torch.ones((7, 2)))
+    before = kron_segsum.launches, kron_segsum_oracle.launches
+    kron_segsum_gather(tr, tc, tv, tf[1], tf[2], 1, 2, 9)
+    kron_segsum_gather(tr, tc, tv, tf[1], tf[2], 1, 2, 9,
+                       X=torch.ones((8, 2)))
+    assert (kron_segsum.launches, kron_segsum_oracle.launches) == before
+
+
+# ------------------------------------------ oracle_pair, stacked ranks
+@pytest.mark.parametrize("P,R,K,s", [(4, 30, 100, 8), (4, 30, 100, None),
+                                     (3, 17, 37, 5), (1, 50, 12, None),
+                                     (2, 1, 1, 1)])
+def test_oracle_pair_stacked_matches_reference_per_rank(P, R, K, s):
+    """The batched plain version against P calls of the reference's
+    ``oracle_pair`` (interpret mode), one per rank, within 1e-5 of the
+    largest output; Z @ x is over all stacked rows."""
+    rng = np.random.default_rng(P * 100 + R + K)
+    tail = () if s is None else (s,)
+    Z = rng.standard_normal((P * R, K)).astype(np.float32)
+    x = rng.standard_normal((K,) + tail).astype(np.float32)
+    y = rng.standard_normal((P, R) + tail).astype(np.float32)
+    gx, gy = oracle_pair(torch.from_numpy(Z), torch.from_numpy(x),
+                         torch.from_numpy(y), P)
+    assert tuple(gx.shape) == (P * R,) + tail
+    assert tuple(gy.shape) == (P, K) + tail
+    wxs, wys = [], []
+    for p in range(P):
+        wx, wy = pallas_oracle_pair(jnp.asarray(Z[p * R:(p + 1) * R]),
+                                    jnp.asarray(x), jnp.asarray(y[p]),
+                                    interpret=True)
+        wxs.append(np.asarray(wx))
+        wys.append(np.asarray(wy))
+    wx, wy = np.concatenate(wxs), np.stack(wys)
+    np.testing.assert_allclose(gx.numpy(), wx, rtol=0,
+                               atol=1e-5 * np.abs(wx).max())
+    np.testing.assert_allclose(gy.numpy(), wy, rtol=0,
+                               atol=1e-5 * np.abs(wy).max())
+    # the stacked call is P single calls, rank by rank, bit for bit
+    tZ = torch.from_numpy(Z)
+    for p in range(P):
+        one = oracle_pair(tZ[p * R:(p + 1) * R], None,
+                          torch.from_numpy(y[p]))[1]
+        assert torch.equal(gy[p], one)
+
+
+def test_oracle_pair_stacked_checks():
+    Z = torch.zeros((12, 4))
+    with pytest.raises(ValueError):  # 12 rows do not split into 5 ranks
+        oracle_pair(Z, None, torch.zeros((5, 2)), 5)
+    with pytest.raises(ValueError):  # y without its rank dimension
+        oracle_pair(Z, None, torch.zeros(12), 4)
+    with pytest.raises(ValueError):  # y of the wrong rank count
+        oracle_pair(Z, None, torch.zeros((3, 3, 2)), 4)
+    with pytest.raises(ValueError):  # vector x with a panel y
+        oracle_pair(Z, torch.zeros(4), torch.zeros((4, 3, 2)), 4)
+    before = oracle_pair.launches
+    xo, yo = oracle_pair(Z, torch.zeros(4), torch.zeros((4, 3)), 4)
+    assert tuple(xo.shape) == (12,) and tuple(yo.shape) == (4, 4)
+    assert oracle_pair.launches == before  # the plain version
