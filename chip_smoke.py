@@ -14,7 +14,8 @@ Phases, each fatal on failure (nothing is caught):
    case and a hub case with 30% of the elements in one row, each in the
    row form (the TPU function's signature) and, bitwise equal to it, in the
    gather form the main path calls (factor rows gathered in the kernel);
-   ``oracle_pair`` on the main path's Z with s = 1 and s = 8, both halves
+   ``oracle_pair`` on the main path's Z with s = 1, s = 8 and the sketch
+   panel's s = 10 (a full pass of 8 columns and a tail of 2), both halves
    and each half alone (as the Lanczos loop calls it); each also rerun and
    required bitwise equal;
 4. the single-process path: ``repro_torch.core.hooi.hooi`` on the
@@ -29,12 +30,14 @@ Phases, each fatal on failure (nothing is caught):
    ``kron_segsum``'s gather form against ``_split_ab`` plus the row form
    (what the path paid before) and the row form alone; ``oracle_pair`` per
    main-path call (one half), as call time back to back and as device time
-   (the profiler's kernel sum), beside one ``torch.matmul``;
+   (the profiler's kernel sum), beside one ``torch.matmul``, at s = 1 and
+   at the sketch panel's s = 10; ``kron_segsum_oracle``'s gather form at
+   ``range_finder``'s s = k + oversample = 14;
 7. ``kron_segsum_oracle`` against its plain version: the first 8M elements
    of the main-path tensor sorted by each mode's rows, f32 and bf16,
-   panels of s = 1, 4 and 8 (the gather form too at s = 8), the 4-mode
-   K̂ = 1000 case and the hub case; reruns bitwise equal and Z bitwise
-   equal to ``kron_segsum``'s;
+   panels of s = 1, 4, 8 and 14 (the gather form too at s = 8 and 14), the
+   4-mode K̂ = 1000 case and the hub case; reruns bitwise equal and Z
+   bitwise equal to ``kron_segsum``'s;
 8. the distributed path: ``repro_torch.distributed.dist_hooi.dist_hooi`` on
    the same tensor over a Lite plan for P = 4 ranks stacked on the card
    (the plan is built once on the host, costed for ``path="auto"``), with
@@ -47,12 +50,28 @@ Phases, each fatal on failure (nothing is caught):
    against the row form and timed against its bound, the row form,
    ``_split_ab`` plus the row form, its plain version and ``kron_segsum``
    plus one ``torch.matmul``; and the stacked ``oracle_pair`` (P = 4,
-   s = 8) checked against its plain version and bitwise against P single
-   calls, timed against P single calls plus ``torch.stack``.
+   s = 8 and the sketch panel's s = 10) checked against its plain version
+   and bitwise against P single calls, timed against P single calls plus
+   ``torch.stack``;
+9. the sketch warm start on the distributed path: ``dist_hooi`` with
+   ``warm_start="sketch"`` (``lanczos_block=8``, 3 invocations) on the Lite
+   plan phase 8 cached, a plan-cache hit (no second build);
+10. the sketch warm start on the single-process path at full width:
+    ``hooi`` as in phase 4 with ``warm_start="sketch"`` and then ``"auto"``
+    (sketch for every mode at these widths: 6 counted Z passes against
+    41), each logging fits and their gap to phase 4's, counted Z passes,
+    every kernel's launches per sweep, steady sweep seconds and peak
+    memory; then a ``torch.profiler`` pass over one sketch invocation;
+11. the objectives at full width, single process:
+    ``CompletionObjective(holdout_fraction=0.2)`` with the held-out RMSE
+    per sweep, and ``objective="nn"`` (factors exactly nonnegative, fits
+    finite in [0, 1]);
+12. every objective × warm start on a small tensor on the card against the
+    port's CPU path, single process and P = 4 on both backends.
 
-The distributed phases (7, 8) run right after the kernel checks (3); when
-the run is late, the single-process path is cut to one invocation (never
-its shape).
+The distributed phases (7, 8, 9) run right after the kernel checks (3);
+when the run is late, the single-process paths are cut to one invocation
+(never their shape).
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit line, and as the last line ``{"ok": true, "device": {...}}``. Without
@@ -80,7 +99,9 @@ CHECK_ELEMENTS = 8_000_000  # main-path elements in the kron_segsum checks
 FOUR_MODE = ((200, 300, 400, 500), 2_000_000)  # K̂ = 1000 at K = 10
 HUB = (4_000_000, 50_000, 0.3)  # elements, rows, share in one row
 DEVICE = "cuda"
-FUSED_PANELS = (1, 4, 8)  # panel widths in the kron_segsum_oracle checks
+SKETCH_PANEL = 10  # the sketch warm start's panel: k at K = 10
+RANGE_PANEL = 14  # range_finder's k + oversample at K = 10
+FUSED_PANELS = (1, 4, 8, RANGE_PANEL)  # kron_segsum_oracle check widths
 DIST_P = 4  # ranks stacked on the card
 DIST_BLOCK = 8  # the repo's roofline configuration (benchmarks/run.py)
 DIST_INVOCATIONS = 3
@@ -197,24 +218,41 @@ def factor_rows_read(factors, mode) -> int:
     return sum(int(f.numel()) for j, f in enumerate(factors) if j != mode)
 
 
-def device_ms(fn, reps: int, match: str | None = None) -> float:
-    """Mean device time of ``fn()`` in ms: the kernels' own time summed by
-    ``torch.profiler`` over ``reps`` calls (those whose name holds
-    ``match``, or all), so host time and launch gaps are left out."""
+def device_ms(fn, reps: int, match: str | None = None,
+              per_call: int = 1) -> float:
+    """Mean device time of ``fn()`` in ms from ``torch.profiler``'s kernel
+    records over ``reps`` calls, so host time and launch gaps are left out.
+
+    Without ``match``: all kernels' time over ``reps``. With ``match``: the
+    kernels whose name holds it, each call launching ``per_call`` of them,
+    as the mean recorded kernel time times ``per_call``. The profiler on
+    the card drops some records of a session (the first kernel nearly
+    always, now and then most of them), so a session that recorded fewer
+    than half of the ``reps * per_call`` kernels is profiled again, up to
+    three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    want = reps * per_call
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    rows = profile_rows(prof)
-    total = sum(ms for ms, _, key in rows if match is None or match in key)
-    if total <= 0:
-        raise AssertionError(f"profiler saw no device time for {match}")
-    return total / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [(ms, n) for ms, n, key in profile_rows(prof)
+                if match is None or match in key]
+        total = sum(ms for ms, _ in hits)
+        seen = sum(n for _, n in hits)
+        if total > 0 and match is None:
+            return total / reps
+        if total > 0 and 2 * seen >= want:
+            return total / seen * per_call
+        log(f"  profiler recorded {seen} of {want} {match} kernels; "
+            "profiling again")
+    raise AssertionError(f"profiler did not record the device time of "
+                         f"{match} in three sessions")
 
 
 def sorted_elements(coords, values, mode):
@@ -344,7 +382,7 @@ def phase_kernel_checks(coords, values, factors, shape) -> dict:
     mode = int(np.argmax(shape))
     Z = ops.penultimate(coords, values, factors, mode, shape[mode])
     R, K = Z.shape
-    for s in (1, 8):
+    for s in (1, 8, SKETCH_PANEL):
         xs, ys = ((K,), (R,)) if s == 1 else ((K, s), (R, s))
         x = torch.randn(xs, device=dev, generator=g)
         y = torch.randn(ys, device=dev, generator=g)
@@ -363,46 +401,93 @@ def phase_kernel_checks(coords, values, factors, shape) -> dict:
     return errs
 
 
-def phase_main_path(t) -> dict:
+def invocations_now(label: str) -> int:
+    """INVOCATIONS, or 1 once the run is past CUT_INVOCATIONS_AFTER_S."""
+    elapsed = time.perf_counter() - T_START
+    if elapsed > CUT_INVOCATIONS_AFTER_S:
+        log(f"CUT: {elapsed:.0f} s used before {label}; invocations "
+            f"{INVOCATIONS} -> 1, shape unchanged")
+        return 1
+    return INVOCATIONS
+
+
+def z_passes_per_mode(shape, warm: str) -> list[int]:
+    """Counted Z passes per mode of one single-process sweep at CORE with
+    ``use_fused_oracle`` and no block or fused build: the knobs as ``hooi``
+    settles them, counted by ``engine.oracle.count_z_passes``."""
+    from repro_torch.core.lanczos import effective_block_size, lanczos_niter
+    from repro_torch.core.sketch import (DEFAULT_POWER_ITERS,
+                                         sketch_block_size, sketch_niter)
+    from repro_torch.engine.oracle import choose_warm_start, count_z_passes
+
+    out = []
+    for n, L in enumerate(shape):
+        k = CORE[n]
+        khat = int(np.prod([CORE[j] for j in range(len(CORE)) if j != n]))
+        s = effective_block_size(k, L, khat, 1)
+        ws = choose_warm_start(warm, k, L, khat, s)
+        if ws == "sketch":
+            s = sketch_block_size(k, L, khat, 1)
+            niter = sketch_niter(k, L, khat, s)
+        else:
+            niter = lanczos_niter(k, L, khat, s)
+        out.append(count_z_passes(niter, warm_start=ws, power_iters=(
+            DEFAULT_POWER_ITERS if ws == "sketch" else 0)))
+    return out
+
+
+def run_single(t, label: str, invocations: int, fits_ok=None, **kw) -> dict:
+    """``hooi`` on the card at CORE with ``use_fused_oracle=True`` and
+    ``kw``, every kernel's launches read around it; logs fits, launches
+    per sweep, sweep seconds and peak memory."""
     import torch
     from repro_torch.core.hooi import hooi
 
-    invocations = INVOCATIONS
-    elapsed = time.perf_counter() - T_START
-    if elapsed > CUT_INVOCATIONS_AFTER_S:
-        invocations = 1
-        log(f"CUT: {elapsed:.0f} s used before the single-process path; "
-            f"invocations {INVOCATIONS} -> {invocations}, shape unchanged")
     sweeps = []
 
     def on_sweep(it, seconds, fit):
-        sweeps.append((seconds, fit))
-        log(f"  sweep {it}: {seconds:.3f} s (mode steps), fit={fit:.6f}")
+        sweeps.append(seconds)
+        log(f"  {label} sweep {it}: {seconds:.3f} s (mode steps), "
+            f"fit={fit:.6f}")
 
+    metrics: dict = {}
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
     dec, fits = hooi(t, CORE, n_invocations=invocations, seed=0,
-                     use_fused_oracle=True, on_sweep=on_sweep, device=DEVICE)
+                     use_fused_oracle=True, on_sweep=on_sweep,
+                     metrics_out=metrics, device=DEVICE, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"single-process path: nnz={t.nnz} invocations={invocations} "
-        f"wall={wall:.3f} s fits={fits} launches={launches} "
-        f"max_memory_allocated={peak / 2**30:.3f} GiB")
-    check_fits(fits, "hooi")
+    steady = float(np.mean(sweeps[1:] or sweeps))
+    per_sweep = {k: v / invocations for k, v in launches.items()}
+    log(f"{label}: nnz={t.nnz} invocations={invocations} wall={wall:.3f} s "
+        f"fits={fits} launches={launches} per sweep {per_sweep} "
+        f"steady_s_per_sweep={steady:.4f} "
+        f"max_memory_allocated={peak / 2**30:.3f} GiB"
+        + (f" metrics={metrics}" if metrics else ""))
+    (fits_ok or check_fits)(fits, label)
     for name in ("kron_segsum", "oracle_pair"):
         if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched on the "
-                                 "single-process path")
+            raise AssertionError(f"{name} was not launched on {label}")
     for n, F in enumerate(dec.factors):
         if tuple(F.shape) != (t.shape[n], CORE[n]) or \
                 not bool(torch.isfinite(F).all()):
-            raise AssertionError(f"factor {n} bad: {tuple(F.shape)}")
+            raise AssertionError(f"{label} factor {n} bad: "
+                                 f"{tuple(F.shape)}")
     return {"launches": launches, "fits": fits, "sweeps": sweeps,
-            "invocations": invocations, "peak_bytes": peak, "wall_s": wall}
+            "invocations": invocations, "peak_bytes": peak, "wall_s": wall,
+            "steady_s": steady, "metrics": metrics,
+            "factor_min": min(float(F.min()) for F in dec.factors)}
+
+
+def phase_main_path(t) -> dict:
+    return run_single(t, "single-process path", invocations_now(
+        "the single-process path"))
 
 
 def phase_small_checks() -> None:
@@ -433,10 +518,106 @@ def phase_small_checks() -> None:
         raise AssertionError(f"card and CPU fits differ by {diff}")
 
 
-def phase_profile(t) -> None:
-    """Device time by kernel over one invocation of the main path (set-up,
-    one sweep, core and fit), and the share of the wall time the device
-    was busy."""
+def phase_sketch(t, default: dict) -> dict:
+    """The sketch warm start on the single-process path at full width:
+    ``"sketch"``, then ``"auto"`` (sketch for every mode at these widths),
+    each beside the default run (phase 4)."""
+    base = z_passes_per_mode(t.shape, "none")
+    out = {}
+    for warm in ("sketch", "auto"):
+        label = f"hooi warm_start={warm}"
+        run = run_single(t, label, invocations_now(label), warm_start=warm)
+        passes = z_passes_per_mode(t.shape, warm)
+        n = min(len(run["fits"]), len(default["fits"]))
+        gap = [run["fits"][i] - default["fits"][i] for i in range(n)]
+        pairs = [r["launches"]["oracle_pair"] / r["invocations"]
+                 for r in (run, default)]
+        log(f"{label}: counted Z passes per sweep {sum(passes)} {passes} "
+            f"against {sum(base)} {base} (default); oracle_pair launches per "
+            f"sweep {pairs[0]:g} against {pairs[1]:g}; "
+            f"steady s per sweep {run['steady_s']:.4f} against "
+            f"{default['steady_s']:.4f}; fit minus the default's per sweep "
+            f"{gap}; peak {run['peak_bytes'] / 2**30:.3f} GiB against "
+            f"{default['peak_bytes'] / 2**30:.3f} GiB")
+        out[warm] = run
+    return out
+
+
+def check_unit_fits(fits, what: str) -> None:
+    """Finite fits in [0, 1]; the NN objective's trajectory need not rise."""
+    if not all(np.isfinite(fits)) or not all(0.0 <= f <= 1.0 for f in fits):
+        raise AssertionError(f"{what}: fits not finite in [0, 1]: {fits}")
+
+
+def phase_objectives(t) -> dict:
+    """Completion (held-out RMSE per sweep) and NN (factors exactly
+    nonnegative) on the single-process path at full width."""
+    from repro_torch.engine.objective import CompletionObjective
+
+    label = "hooi objective=completion(0.2)"
+    comp = run_single(t, label, invocations_now(label),
+                      objective=CompletionObjective(holdout_fraction=0.2))
+    rmse = comp["metrics"].get("holdout_rmse", [])
+    if len(rmse) != comp["invocations"] or not all(np.isfinite(rmse)):
+        raise AssertionError(f"{label}: held-out RMSE {rmse}")
+    log(f"{label}: held-out RMSE per sweep {rmse}")
+    label = "hooi objective=nn"
+    nn = run_single(t, label, invocations_now(label), fits_ok=check_unit_fits,
+                    objective="nn")
+    if nn["factor_min"] < 0.0:
+        raise AssertionError(f"{label}: a factor entry is negative "
+                             f"({nn['factor_min']})")
+    log(f"{label}: smallest factor entry {nn['factor_min']} (>= 0)")
+    return {"completion": comp, "nn": nn}
+
+
+def phase_objective_matrix() -> None:
+    """Every objective × warm start on a small tensor, on the card against
+    the port's CPU path: single process and P = 4 on both backends."""
+    from repro_torch.core.hooi import hooi
+    from repro_torch.data.tensors import synth_tensor
+    from repro_torch.distributed.dist_hooi import dist_hooi
+
+    shape, nnz, core = DIST_SMALL
+    t = synth_tensor(shape, nnz, alphas=(1.1, 1.0, 0.9), seed=3)
+    worst = {"fit": 0.0, "rmse": 0.0}
+
+    def compare(label, fits_g, fits_c, m_g, m_c):
+        diff = float(np.max(np.abs(np.subtract(fits_g, fits_c))))
+        r = float(np.max(np.abs(np.subtract(m_g.get("holdout_rmse", [0]),
+                                            m_c.get("holdout_rmse", [0])))))
+        worst["fit"], worst["rmse"] = max(worst["fit"], diff), \
+            max(worst["rmse"], r)
+        if not (diff <= 1e-4 and r <= 1e-5):
+            raise AssertionError(f"{label}: card and CPU differ: fits by "
+                                 f"{diff}, held-out RMSE by {r}")
+
+    for objective in ("tucker", "completion", "nn"):
+        for warm in ("none", "sketch", "auto"):
+            kw = dict(n_invocations=2, seed=2, use_fused_oracle=True,
+                      warm_start=warm, objective=objective)
+            m_g, m_c = {}, {}
+            _, fg = hooi(t, core, metrics_out=m_g, device=DEVICE, **kw)
+            _, fc = hooi(t, core, metrics_out=m_c, device="cpu", **kw)
+            compare(f"small hooi {objective} {warm}", fg, fc, m_g, m_c)
+            for path in ("liteopt", "baseline"):
+                dkw = dict(kw, path=path, lanczos_block=DIST_BLOCK,
+                           fused_zbuild=True)
+                _, sg = dist_hooi(t, core, DIST_P, device=DEVICE, **dkw)
+                _, sc = dist_hooi(t, core, DIST_P, device="cpu", **dkw)
+                compare(f"small dist_hooi {path} {objective} {warm}",
+                        sg.fits, sc.fits, sg.objective_metrics or {},
+                        sc.objective_metrics or {})
+    log(f"objective x warm start on {shape} ({nnz} drawn), card against "
+        f"CPU, single process and P={DIST_P} on both backends: largest fit "
+        f"difference {worst['fit']:.2e} (tolerance 1e-4), largest held-out "
+        f"RMSE difference {worst['rmse']:.2e} (tolerance 1e-5)")
+
+
+def phase_profile(t, **kw) -> None:
+    """Device time by kernel over one invocation of the single-process path
+    (with ``kw``: set-up, one sweep, core and fit), and the share of the
+    wall time the device was busy."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.hooi import hooi
@@ -446,13 +627,15 @@ def phase_profile(t) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         hooi(t, CORE, n_invocations=1, seed=0, use_fused_oracle=True,
-             device=DEVICE)
+             device=DEVICE, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = profile_rows(prof)
     busy = sum(r[0] for r in rows)
-    log(f"profile of hooi(n_invocations=1): wall {wall * 1e3:.1f} ms, "
-        f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%)")
+    args = "".join(f", {k}={v!r}" for k, v in kw.items())
+    log(f"profile of hooi(n_invocations=1{args}): "
+        f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / (wall * 1e3):.1f}%)")
     for ms, count, key in rows[:14]:
         log(f"  {ms:9.3f} ms {count:5d}x  {key[:90]}")
 
@@ -467,7 +650,8 @@ def phase_timings(coords, values, factors, shape) -> dict:
     from repro_torch.kernels.kron_segsum import kron_segsum
     from repro_torch.kernels.oracle_fused import oracle_pair
 
-    out = {"kron_segsum": [], "oracle_pair": []}
+    out = {"kron_segsum": [], "oracle_pair": [], "oracle_pair_s10": [],
+           "kron_segsum_oracle_s14": []}
     dev = coords.device
     g = torch.Generator(device=dev).manual_seed(7)
     for mode in range(len(shape)):
@@ -501,6 +685,23 @@ def phase_timings(coords, values, factors, shape) -> dict:
             ms=(ms + ms2) / 2, plain=plain, bound=bound, by=by,
             row_ms=row_ms, row_bound=row_bound,
             split_row_ms=(split_ms + split_ms2) / 2))
+
+        # range_finder's (Z, Z·Ω) at s = k + oversample, gather form
+        X14 = torch.randn((Ka * Kb, RANGE_PANEL), device=dev, generator=g)
+        ms14 = cuda_ms(lambda: ops.penultimate_sorted_oracle(
+            c, v, rows, factors, mode, R, X14), reps=5)
+        plain14 = cuda_ms(lambda: ref.kron_segsum_oracle_ref(rows, a, b, R,
+                                                             X14), reps=2)
+        nonempty = int(torch.unique_consecutive(rows).numel())
+        bound14, by14 = fused_gather_bound_ms(
+            E, len(shape), Ka, Kb, R, factor_rows_read(factors, mode),
+            nonempty, RANGE_PANEL)
+        log(f"kron_segsum_oracle mode {mode} at s={RANGE_PANEL} "
+            f"(range_finder, single-process shapes): gather ms={ms14:.4f} "
+            f"bound_ms={bound14:.4f} ({by14}) plain_ms={plain14:.4f}; "
+            f"kron_segsum alone ms={(ms + ms2) / 2:.4f}")
+        out["kron_segsum_oracle_s14"].append(dict(
+            ms=ms14, plain=plain14, bound=bound14, by=by14))
         del rows, c, v, a, b
         torch.cuda.empty_cache()
 
@@ -519,7 +720,8 @@ def phase_timings(coords, values, factors, shape) -> dict:
             torch.matmul(y, Z)
 
         ms = cuda_ms(pair, reps=100, warmup=3) / 2
-        dev_ms = device_ms(pair, reps=100, match="oracle_kernel") / 2
+        dev_ms = device_ms(pair, reps=100, match="oracle_kernel",
+                           per_call=2) / 2
         zx_dev = device_ms(lambda: oracle_pair(Z, x, None), reps=100,
                            match="oracle_kernel")
         zty_dev = device_ms(lambda: oracle_pair(Z, None, y), reps=100,
@@ -544,6 +746,41 @@ def phase_timings(coords, values, factors, shape) -> dict:
                                        lib_device_ms=lib_dev,
                                        zx_device_ms=zx_dev,
                                        zty_device_ms=zty_dev))
+
+        # the sketch panel: seed, power iteration and block driver products
+        xp = torch.randn((K, SKETCH_PANEL), device=dev, generator=g)
+        yp = torch.randn((R, SKETCH_PANEL), device=dev, generator=g)
+
+        def pair_p():
+            oracle_pair(Z, xp, None)
+            oracle_pair(Z, None, yp)
+
+        def lib_p():
+            torch.matmul(Z, xp)
+            torch.matmul(Z.T, yp)
+
+        ms = cuda_ms(pair_p, reps=100, warmup=3) / 2
+        dev_ms = device_ms(pair_p, reps=100, match="oracle_kernel",
+                           per_call=2) / 2
+        zx_dev = device_ms(lambda: oracle_pair(Z, xp, None), reps=100,
+                           match="oracle_kernel")
+        zty_dev = device_ms(lambda: oracle_pair(Z, None, yp), reps=100,
+                            match="oracle_kernel")
+        plain = cuda_ms(lambda: (ref.oracle_pair_ref(Z, xp, None),
+                                 ref.oracle_pair_ref(Z, None, yp)),
+                        reps=100, warmup=3) / 2
+        lib = cuda_ms(lib_p, reps=100, warmup=3) / 2
+        lib_dev = device_ms(lib_p, reps=100) / 2
+        bound, by = oracle_half_bound_ms(R, K, SKETCH_PANEL)
+        log(f"oracle_pair mode {mode}: Z={R}x{K} s={SKETCH_PANEL} one half "
+            f"per call ms={ms:.4f} device_ms={dev_ms:.4f} (Z@X "
+            f"{zx_dev:.4f}, Z^T@Y {zty_dev:.4f}) plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} library_device_ms={lib_dev:.4f} "
+            f"bound_ms={bound:.4f} ({by})")
+        out["oracle_pair_s10"].append(dict(
+            ms=ms, device_ms=dev_ms, plain=plain, bound=bound, by=by,
+            lib=lib, lib_device_ms=lib_dev, zx_device_ms=zx_dev,
+            zty_device_ms=zty_dev))
         del Z
     return out
 
@@ -592,7 +829,7 @@ def phase_fused_checks(coords, values, factors, shape) -> float:
                                        precision=prec),
                     ref.kron_segsum_oracle_ref(rows, a, b, shape[mode], X,
                                                prec), z_kron))
-                if s == DIST_BLOCK:
+                if s in (DIST_BLOCK, RANGE_PANEL):
                     err = max(err, check_gather(
                         f"oracle mode {mode} {prec} s={s}", rows, c, v,
                         factors, mode, shape[mode], prec, got[0], X, got[1]))
@@ -715,6 +952,56 @@ def phase_dist(t) -> dict:
     return out
 
 
+def phase_dist_sketch(t) -> dict:
+    """The sketch warm start on the distributed path, on the Lite plan
+    ``phase_dist`` left in the plan cache (``path="auto"`` is its key, so
+    the plan is not built again)."""
+    import torch
+    from repro_torch.distributed.dist_hooi import dist_hooi
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    dec, st = dist_hooi(t, CORE, DIST_P, scheme="lite", path="auto",
+                        n_invocations=DIST_INVOCATIONS, warm_start="sketch",
+                        **dist_kwargs())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.mean(st.sweep_s[1:] or st.sweep_s))
+    per_sweep = {k: v / len(st.fits) for k, v in launches.items()}
+    log(f"dist_hooi warm_start=sketch (lanczos_block={DIST_BLOCK}, "
+        f"fused_zbuild=True asked) backends={st.comm_backends}: "
+        f"plan_cache_hit={st.plan_cache_hit} "
+        f"partition_build_s={st.partition_build_s:.3f} wall={wall:.3f} s "
+        f"sweeps={[round(x, 4) for x in st.sweep_s]} "
+        f"steady_s_per_sweep={steady:.4f} fits={st.fits} "
+        f"warm_start={st.warm_start} z_passes={st.z_passes} "
+        f"lanczos_block={st.lanczos_block} launches={launches} per sweep "
+        f"{per_sweep} "
+        f"max_memory_allocated={peak / 2**30:.3f} GiB")
+    if not st.plan_cache_hit:
+        raise AssertionError("dist sketch: the plan was built again")
+    if set(st.warm_start.values()) != {"sketch"}:
+        raise AssertionError(f"dist sketch ran {st.warm_start}")
+    check_fits(st.fits, "dist_hooi sketch")
+    for name in ("kron_segsum", "oracle_pair"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 "distributed sketch path")
+    if launches["kron_segsum_oracle"]:
+        raise AssertionError("a sketch mode ran the fused Z-build")
+    for n, F in enumerate(dec.factors):
+        if tuple(F.shape) != (t.shape[n], CORE[n]) or \
+                not bool(torch.isfinite(F).all()):
+            raise AssertionError(f"dist sketch factor {n} bad")
+    return {"stats": st, "launches": launches, "peak_bytes": peak,
+            "wall_s": wall, "steady_s": steady}
+
+
 def phase_dist_small() -> None:
     from repro_torch.data.tensors import synth_tensor
     from repro_torch.distributed.dist_hooi import dist_hooi
@@ -819,8 +1106,8 @@ def phase_dist_timings(pl, factors) -> dict:
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(13)
-    out = {"kron_segsum_oracle": [], "stacked": [], "err": 0.0,
-           "stacked_err": 0.0}
+    out = {"kron_segsum_oracle": [], "stacked": [], "stacked_s10": [],
+           "err": 0.0, "stacked_err": 0.0}
     for mode, mp in enumerate(pl.parts):
         arrs = upload_mode(mp, dev)
         c, v, rows = arrs["coords"], arrs["values"], arrs["rows"]
@@ -920,7 +1207,56 @@ def phase_dist_timings(pl, factors) -> dict:
                                    single_device_ms=sg_dev, lib=lib,
                                    bound=bound, zmv_ms=zmv_ms,
                                    zmv_device_ms=zmv_dev))
-        del c, v, rows, Z, y, got, again, want, single, z_row
+
+        # the sketch panel on the stacked ranks: the seed's and the power
+        # iteration's products at s = 10
+        y10 = torch.randn((P, R_pad, SKETCH_PANEL), device=dev, generator=g)
+        x10 = torch.randn((K, SKETCH_PANEL), device=dev, generator=g)
+        got = oracle_pair(Z, None, y10, P)[1]
+        out["stacked_err"] = max(out["stacked_err"], check(
+            f"stacked oracle_pair Z^T@y mode {mode} P={P} R_pad={R_pad} "
+            f"K={K} s={SKETCH_PANEL}", got,
+            ref.oracle_pair_ref(Z, None, y10, P)[1],
+            oracle_pair(Z, None, y10, P)[1]),
+            check(f"oracle_pair Z@x mode {mode} rows={R} K={K} "
+                  f"s={SKETCH_PANEL}", oracle_pair(Z, x10, None)[0],
+                  ref.oracle_pair_ref(Z, x10, None)[0],
+                  oracle_pair(Z, x10, None)[0]))
+        if not all(torch.equal(got[p], oracle_pair(
+                Z[p * R_pad:(p + 1) * R_pad], None, y10[p])[1])
+                for p in range(P)):
+            raise AssertionError(f"stacked oracle_pair s={SKETCH_PANEL} "
+                                 f"mode {mode}: not bitwise equal to single "
+                                 "calls")
+        log("  stacked oracle_pair s=10: bitwise equal to P single calls")
+        st_ms = cuda_ms(lambda: oracle_pair(Z, None, y10, P), reps=100,
+                        warmup=3)
+        st_dev = device_ms(lambda: oracle_pair(Z, None, y10, P), reps=100,
+                           match="oracle_kernel")
+        sg_ms = cuda_ms(lambda: torch.stack([oracle_pair(
+            Z[p * R_pad:(p + 1) * R_pad], None, y10[p])[1]
+            for p in range(P)]), reps=100, warmup=3)
+        zmv_ms = cuda_ms(lambda: oracle_pair(Z, x10, None), reps=100,
+                         warmup=3)
+        zmv_dev = device_ms(lambda: oracle_pair(Z, x10, None), reps=100,
+                            match="oracle_kernel")
+        lib = cuda_ms(lambda: torch.bmm(Z.view(P, R_pad, K).transpose(1, 2),
+                                        y10), reps=100, warmup=3)
+        plain = cuda_ms(lambda: ref.oracle_pair_ref(Z, None, y10, P),
+                        reps=100, warmup=3)
+        bound, by = oracle_half_bound_ms(R, K, SKETCH_PANEL)
+        bound = bound + 1e3 * 4 * (P - 1) * K * SKETCH_PANEL \
+            / HBM_BYTES_PER_S
+        log(f"stacked oracle_pair mode {mode} s={SKETCH_PANEL}: Z^T@Y "
+            f"ms={st_ms:.4f} device_ms={st_dev:.4f} vs {P} single "
+            f"calls+torch.stack ms={sg_ms:.4f}; one torch.bmm ms={lib:.4f}; "
+            f"plain_ms={plain:.4f}; bound_ms={bound:.4f} ({by}); Z@X ({R} "
+            f"rows) ms={zmv_ms:.4f} device_ms={zmv_dev:.4f}")
+        out["stacked_s10"].append(dict(ms=st_ms, device_ms=st_dev,
+                                       single_ms=sg_ms, lib=lib, plain=plain,
+                                       bound=bound, zmv_ms=zmv_ms,
+                                       zmv_device_ms=zmv_dev))
+        del c, v, rows, Z, y, got, again, want, single, z_row, y10, x10
         torch.cuda.empty_cache()
     return out
 
@@ -979,20 +1315,38 @@ def main() -> int:
                               dist_timing["stacked_err"])
     del dist["factors"]
     torch.cuda.empty_cache()
+    dist_sketch = phase_dist_sketch(t)
 
     main = phase_main_path(t)
     phase_small_checks()
     phase_profile(t)
+    sketch = phase_sketch(t, main)
+    phase_profile(t, warm_start="sketch")
+    objectives = phase_objectives(t)
+    phase_objective_matrix()
 
     coords, values = device_coords(t, dev)
     timing = phase_timings(coords, values, factors, t.shape)
     timing["kron_segsum_oracle"] = dist_timing["kron_segsum_oracle"]
     run = dist["runs"]["liteopt"]
+    log(f"sweep seconds (steady): hooi {main['steady_s']:.4f}, sketch "
+        f"{sketch['sketch']['steady_s']:.4f}, auto "
+        f"{sketch['auto']['steady_s']:.4f}, completion "
+        f"{objectives['completion']['steady_s']:.4f}, nn "
+        f"{objectives['nn']['steady_s']:.4f}; dist liteopt "
+        f"{run['steady_s']:.4f}, baseline "
+        f"{dist['runs']['baseline']['steady_s']:.4f}, sketch "
+        f"{dist_sketch['steady_s']:.4f}")
     dist_sweeps = len(run["stats"].fits)
     by_path = {
-        name: {"hooi": main["launches"].get(name, 0),
+        name: {"hooi": main["launches"][name],
                "dist_liteopt": dist["runs"]["liteopt"]["launches"][name],
-               "dist_baseline": dist["runs"]["baseline"]["launches"][name]}
+               "dist_baseline": dist["runs"]["baseline"]["launches"][name],
+               "hooi_sketch": sketch["sketch"]["launches"][name],
+               "hooi_auto": sketch["auto"]["launches"][name],
+               "dist_sketch": dist_sketch["launches"][name],
+               "hooi_completion": objectives["completion"]["launches"][name],
+               "hooi_nn": objectives["nn"]["launches"][name]}
         for name in ("kron_segsum", "kron_segsum_oracle", "oracle_pair")}
     log(f"launches by path: {by_path}; per sweep on dist liteopt: "
         + ", ".join(f"{k} {v / dist_sweeps:g}"
@@ -1033,7 +1387,20 @@ def main() -> int:
                 zty_device_ms=mean(name, "zty_device_ms"),
                 library_device_ms=mean(name, "lib_device_ms"),
                 stacked={k: float(np.mean([r[k] for r in stacked]))
-                         for k in stacked[0]})
+                         for k in stacked[0]},
+                sketch_panel=dict(
+                    s=SKETCH_PANEL, ms=mean("oracle_pair_s10", "ms"),
+                    device_ms=mean("oracle_pair_s10", "device_ms"),
+                    zx_device_ms=mean("oracle_pair_s10", "zx_device_ms"),
+                    zty_device_ms=mean("oracle_pair_s10", "zty_device_ms"),
+                    plain_ms=mean("oracle_pair_s10", "plain"),
+                    bound_ms=mean("oracle_pair_s10", "bound"),
+                    library_ms=mean("oracle_pair_s10", "lib"),
+                    library_device_ms=mean("oracle_pair_s10",
+                                           "lib_device_ms"),
+                    stacked={k: float(np.mean([r[k] for r in
+                                               dist_timing["stacked_s10"]]))
+                             for k in dist_timing["stacked_s10"][0]}))
         else:  # the gather form's numbers, then the row form's
             entry.update(
                 form="gather", row_form_ms=mean(name, "row_ms"),
@@ -1041,6 +1408,11 @@ def main() -> int:
                 split_ab_plus_row_form_ms=mean(name, "split_row_ms"))
         if name == "kron_segsum_oracle":
             entry["kron_segsum_plus_matmul_ms"] = mean(name, "two")
+            entry["range_finder_panel"] = dict(
+                s=RANGE_PANEL, ms=mean("kron_segsum_oracle_s14", "ms"),
+                plain_ms=mean("kron_segsum_oracle_s14", "plain"),
+                bound_ms=mean("kron_segsum_oracle_s14", "bound"),
+                bound_by=bound_by("kron_segsum_oracle_s14"))
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -18,10 +18,10 @@ reference's ``use_kernels`` is absent: here the device chooses the Z-build
 (kernel on the card, plain PyTorch on the CPU). Added: ``device`` (default
 the card), ``draw`` (the random-draw seam, ``repro_torch.random``),
 ``on_sweep``, and ``init`` also accepting explicit initial factors.
-``lanczos_block`` (block Lanczos) and ``fused_zbuild`` are the reference's;
-knobs the port does not carry yet (sketch warm starts, objectives other
-than tucker, ``precision="auto"``) raise ``NotImplementedError`` naming
-their ROADMAP item.
+``lanczos_block`` (block Lanczos), ``fused_zbuild``, ``warm_start`` (the
+sketch warm start, ``core.sketch``) and ``objective`` (tucker, completion
+and nonnegative, ``engine.objective``) are the reference's.
+``precision="auto"`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -81,31 +81,32 @@ def hosvd_init(t: SparseTensor, core_dims: Sequence[int],
     return factors
 
 
-def _knobs(precision, lanczos_block, fused_zbuild, warm_start,
-           objective) -> tuple[str, int, bool]:
+def _knobs(precision, lanczos_block, fused_zbuild, warm_start
+           ) -> tuple[str, int, bool, str]:
     """Resolve the knobs through the engine's resolvers, which the
-    distributed executor uses too; refuse the ones the port does not carry.
+    distributed executor uses too.
 
-    Returns (Z-build precision, requested panel width, fused Z-build).
+    Returns (Z-build precision, requested panel width, fused Z-build, warm
+    start).
     """
-    from repro_torch.engine.objective import resolve_objective
     from repro_torch.engine.oracle import (resolve_block_size,
                                            resolve_warm_start)
     from repro_torch.engine.zbuild import (resolve_fused_zbuild,
                                            resolve_precision)
 
-    resolve_warm_start(warm_start)
-    resolve_objective(objective)
     return (resolve_precision(precision), resolve_block_size(lanczos_block),
-            resolve_fused_zbuild(fused_zbuild))
+            resolve_fused_zbuild(fused_zbuild),
+            resolve_warm_start(warm_start))
 
 
 def _mode_knobs(factors, n: int, L: int, block: int, fused_zbuild: bool,
-                lanczos_iters: int | None) -> dict:
-    """One mode's panel width (clamped to its rank cap), fused flag and
-    iteration budget: the reference's arithmetic, which ``_mode_specs`` of
-    the distributed executor repeats."""
+                warm_start: str, lanczos_iters: int | None) -> dict:
+    """One mode's panel width (clamped to its rank cap), warm start
+    (``"auto"`` settled), fused flag and iteration budget: the reference's
+    arithmetic, which ``_mode_specs`` of the distributed executor repeats."""
     from repro_torch.core.lanczos import effective_block_size
+    from repro_torch.core.sketch import sketch_block_size
+    from repro_torch.engine.oracle import choose_warm_start
 
     k_n = int(factors[n].shape[1])
     khat = 1
@@ -113,10 +114,15 @@ def _mode_knobs(factors, n: int, L: int, block: int, fused_zbuild: bool,
         if j != n:
             khat *= int(f.shape[1])
     s_eff = effective_block_size(k_n, L, khat, block)
+    ws_n = choose_warm_start(warm_start, k_n, L, khat, s_eff, fused_zbuild)
+    fz_n = fused_zbuild and ws_n != "sketch"
+    if ws_n == "sketch":
+        s_eff = sketch_block_size(k_n, L, khat, block)
     niter = lanczos_iters
-    if niter is not None and (fused_zbuild or s_eff > 1):
+    if niter is not None and (fz_n or s_eff > 1 or ws_n == "sketch"):
         niter = -(-int(niter) // s_eff)  # vector budget -> block count
-    return dict(niter=niter, block_size=s_eff, fused_zbuild=fused_zbuild)
+    return dict(niter=niter, block_size=s_eff, fused_zbuild=fz_n,
+                warm_start=ws_n)
 
 
 def hooi_invocation(
@@ -137,13 +143,17 @@ def hooi_invocation(
 
     Per-mode keys are ``key.fold_in(n)``, the reference's convention for
     this entry point. ``factors`` must lie on ``device`` (default the card).
+    ``objective`` post-processes each mode's solve (``refine_factor``); as
+    in the reference, this entry point applies no ``prepare_tensor`` view.
     """
+    from repro_torch.engine.objective import resolve_objective
     from repro_torch.engine.steps import local_mode_step
 
     dev = resolve_device(device)
     full_precision_matmul()
-    prec, blk, fz = _knobs(precision, lanczos_block, fused_zbuild,
-                           warm_start, objective)
+    prec, blk, fz, warm = _knobs(precision, lanczos_block, fused_zbuild,
+                                 warm_start)
+    obj = None if objective is None else resolve_objective(objective)
     coords, values = convert.device_coords(t, dev)
     new_factors = list(factors)
     track = timings if timings is not None else {}
@@ -151,8 +161,9 @@ def hooi_invocation(
         new_factors[n] = local_mode_step(
             coords, values, new_factors, n, t.shape[n], key.fold_in(n),
             use_fused_oracle=bool(use_fused_oracle), precision=prec,
-            timings=track, **_mode_knobs(new_factors, n, t.shape[n], blk,
-                                         fz, lanczos_iters))
+            timings=track, objective=obj,
+            **_mode_knobs(new_factors, n, t.shape[n], blk, fz, warm,
+                          lanczos_iters))
     return new_factors
 
 
@@ -198,18 +209,27 @@ def hooi(
     (None honors ``REPRO_PRECISION``). ``lanczos_block`` is the requested
     Lanczos panel width (None honors ``REPRO_LANCZOS_BLOCK``), clamped per
     mode; ``fused_zbuild`` fuses the Z-build with the first panel product
-    (None honors ``REPRO_FUSED_ZBUILD``). ``warm_start`` and ``objective``
-    accept only their default meaning. ``metrics_out`` is accepted for
-    signature parity: the tucker objective adds no per-sweep metrics.
+    (None honors ``REPRO_FUSED_ZBUILD``). ``warm_start`` is ``"none"``,
+    ``"sketch"`` or ``"auto"`` (None honors ``REPRO_WARM_START``):
+    ``"sketch"`` seeds the block driver with the factor-sketched panel under
+    the reduced budget, ``"auto"`` takes it per mode where it reads Z fewer
+    times. ``objective`` selects what the sweeps optimize (None honors
+    ``REPRO_OBJECTIVE``, default tucker; a name or an
+    ``engine.objective.Objective``); its ``prepare_tensor`` view is applied
+    here, before anything goes to the device. ``metrics_out`` (a dict)
+    collects the objective's extra per-sweep stats (held-out RMSE).
 
     ``draw`` replaces the default seeded draws (``repro_torch.random``);
     ``on_sweep(it, seconds, fit)`` observes every sweep.
     """
-    del metrics_out  # the tucker objective records nothing there
+    from repro_torch.engine.objective import resolve_objective
+
     dev = resolve_device(device)
     full_precision_matmul()
-    prec, blk, fz = _knobs(precision, lanczos_block, fused_zbuild,
-                           warm_start, objective)
+    prec, blk, fz, warm = _knobs(precision, lanczos_block, fused_zbuild,
+                                 warm_start)
+    obj = resolve_objective(objective)
+    t = obj.prepare_tensor(t)
     fused = bool(use_fused_oracle)
 
     key = make_key(seed, draw)
@@ -235,8 +255,9 @@ def hooi(
     def mode_step(n, facs, kk):
         return local_mode_step(coords, values, facs, n, t.shape[n], kk,
                                use_fused_oracle=fused, precision=prec,
+                               objective=obj,
                                **_mode_knobs(facs, n, t.shape[n], blk, fz,
-                                             lanczos_iters))
+                                             warm, lanczos_iters))
 
     def report(it, seconds, fit):
         if verbose:
@@ -245,4 +266,5 @@ def hooi(
             on_sweep(it, seconds, fit)
 
     return run_hooi_sweeps(coords, values, t, factors, key, n_invocations,
-                           mode_step, on_sweep=report)
+                           mode_step, on_sweep=report, objective=obj,
+                           metrics_out=metrics_out)

@@ -14,15 +14,19 @@ to what the distributed main path uses:
   * ``scheme="auto"`` builds the cheap candidates (``lite``, ``coarse``,
     ``medium``), scores each with the cost model and returns the
     predicted-fastest plan.
+  * ``save()``/``load()`` (and ``load_plan``) extend the amortization across
+    processes: a plan serializes to one ``.npz`` in the reference's format
+    (a file either package writes loads in the other) and is validated
+    against the tensor's fingerprint and the objective on load.
 
-Plan files (``save``/``load``) and the streaming helpers
-(``extend_scheme``, ``refresh_decision``, ``rescore_plan``) are ROADMAP
-Queue A item 12.
+The streaming helpers (``extend_scheme``, ``refresh_decision``,
+``rescore_plan``) are ROADMAP Queue A item 12.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
 import time
 from typing import Sequence
@@ -32,12 +36,13 @@ import numpy as np
 from .calibrate import current_cost_model_state
 from .coo import SparseTensor
 from .distribution import Scheme, build_scheme
-from .metrics import SchemeMetrics, scheme_metrics
+from .metrics import ModeMetrics, SchemeMetrics, scheme_metrics
 
 __all__ = [
     "PlanCost",
     "PartitionPlan",
     "plan",
+    "load_plan",
     "AUTO_CANDIDATES",
     "plan_cache_stats",
     "plan_cache_clear",
@@ -47,6 +52,8 @@ __all__ = [
 # Candidates for real-time selection: the schemes whose construction is cheap
 # enough to run inline before every decomposition (paper Fig 16).
 AUTO_CANDIDATES = ("lite", "coarse", "medium")
+
+PLAN_FILE_VERSION = 1
 
 @dataclasses.dataclass(frozen=True)
 class PlanCost:
@@ -131,6 +138,128 @@ class PartitionPlan:
         K = self.core_dims
         khat = int(np.prod([K[j] for j in range(len(K)) if j != n]))
         return comm_model(self.parts[n], khat, 2 * int(K[n]))
+
+    # ------------------------------------------------------------ persistence
+    def save(self, path) -> None:
+        """Serialize to one ``.npz`` for cross-process reuse (``load``).
+
+        Stores the scheme policies, every padded ``ModePartition`` array, the
+        §4 metrics, the modeled cost, the objective and the source tensor's
+        fingerprint. ``path`` is a filename or a binary file-like object.
+        """
+        if self.fingerprint is None:
+            raise ValueError(
+                "plan has no tensor fingerprint — rebuild it with "
+                "repro_torch.core.plan.plan()")
+        arrays: dict[str, np.ndarray] = {}
+        policies = self.scheme.policies[:1] if self.scheme.uni \
+            else self.scheme.policies
+        for n, pol in enumerate(policies):
+            arrays[f"policy_{n}"] = np.asarray(pol)
+        mp_scalars = []
+        for n, mp in enumerate(self.parts):
+            scalars = {}
+            for f in dataclasses.fields(mp):
+                v = getattr(mp, f.name)
+                if isinstance(v, np.ndarray):
+                    arrays[f"mp{n}_{f.name}"] = v
+                else:
+                    scalars[f.name] = int(v)
+            mp_scalars.append(scalars)
+        meta = {
+            "version": PLAN_FILE_VERSION,
+            "fingerprint": self.fingerprint,
+            "scheme": {"name": self.scheme.name, "uni": self.scheme.uni,
+                       "P": self.scheme.P, "nmodes": self.scheme.nmodes},
+            "mp_scalars": mp_scalars,
+            "metrics": dataclasses.asdict(self.metrics),
+            "cost": dataclasses.asdict(self.cost),
+            "core_dims": list(self.core_dims),
+            "P": self.P,
+            "build_s": self.build_s,
+            "candidates": self.candidates,
+            "stream_version": self.stream_version,
+            "pad_geometric": self.pad_geometric,
+            "objective": self.objective,
+        }
+        np.savez_compressed(path, __meta__=np.array(json.dumps(meta)),
+                            **arrays)
+
+    @classmethod
+    def load(cls, path, t: SparseTensor, objective=None) -> "PartitionPlan":
+        """Deserialize a plan and validate it against ``t``.
+
+        Raises ``ValueError`` on an unknown file version, on an objective
+        mismatch (``objective``: None honors ``REPRO_OBJECTIVE``, default
+        tucker; a name or an ``Objective``) and on a fingerprint mismatch;
+        the objective's view of ``t`` is taken before the fingerprint check,
+        as when the plan was built.
+        """
+        from repro_torch.distributed.partition import ModePartition
+        from repro_torch.engine.objective import resolve_objective
+
+        obj = resolve_objective(objective)
+        t = obj.prepare_tensor(t)
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["__meta__"]))
+            if meta.get("version") != PLAN_FILE_VERSION:
+                raise ValueError(
+                    f"unsupported plan file version {meta.get('version')!r}")
+            saved_objective = meta.get("objective", "tucker")
+            if saved_objective != obj.name:
+                raise ValueError(
+                    f"plan file was built for objective="
+                    f"{saved_objective!r}, asked to load for {obj.name!r} — "
+                    "refusing to apply it across objectives")
+            fp = t.fingerprint()
+            if meta["fingerprint"] != fp:
+                raise ValueError(
+                    f"plan was built for tensor {meta['fingerprint'][:12]}…, "
+                    f"got {fp[:12]}… — refusing to apply a stale plan")
+            sm = meta["scheme"]
+            if sm["uni"]:
+                pol = z["policy_0"]
+                policies = tuple(pol for _ in range(sm["nmodes"]))
+            else:
+                policies = tuple(z[f"policy_{n}"]
+                                 for n in range(sm["nmodes"]))
+            scheme = Scheme(name=sm["name"], policies=policies,
+                            uni=sm["uni"], P=sm["P"])
+            parts = []
+            for n, scalars in enumerate(meta["mp_scalars"]):
+                kw = dict(scalars)
+                for f in dataclasses.fields(ModePartition):
+                    if f.name not in kw:
+                        kw[f.name] = z[f"mp{n}_{f.name}"]
+                parts.append(ModePartition(**kw))
+        md = meta["metrics"]
+        metrics = SchemeMetrics(
+            **{**md, "per_mode": tuple(ModeMetrics(**m)
+                                       for m in md["per_mode"]),
+               "core_dims": tuple(md["core_dims"])})
+        cd = dict(meta["cost"])
+        if "mode_backends" in cd:  # JSON turns tuples into lists
+            cd["mode_backends"] = tuple(cd["mode_backends"])
+        return cls(
+            scheme=scheme,
+            parts=tuple(parts),
+            metrics=metrics,
+            cost=PlanCost(**cd),
+            core_dims=tuple(meta["core_dims"]),
+            P=int(meta["P"]),
+            build_s=float(meta["build_s"]),
+            cache_key=None,
+            candidates=meta["candidates"],
+            fingerprint=meta["fingerprint"],
+            stream_version=meta.get("stream_version"),
+            pad_geometric=bool(meta.get("pad_geometric", False)),
+            objective=saved_objective,
+        )
+
+
+def load_plan(path, t: SparseTensor, objective=None) -> PartitionPlan:
+    """Module-level alias for ``PartitionPlan.load``."""
+    return PartitionPlan.load(path, t, objective=objective)
 
 
 # ---------------------------------------------------------------- cost model

@@ -10,13 +10,16 @@ math of its own: every mode step is ``engine.steps.make_mode_step_fn``
 (Z-build -> oracle -> comm backend) and the sweep loop is the shared
 ``engine.sweep.run_hooi_sweeps``.
 
-What ``run`` does: builds or reuses the plan (``repro_torch.core.plan``,
-content-cached on the host), derives each mode's static step parameters
-exactly as the reference does (``_mode_specs``), uploads each
-``ModePartition`` to the device as it is (plus the comm spaces' gather
-maps), and runs the sweeps. The reference's compiled-step and upload caches,
-``prepare``/``stage_upload``, ``profile_phases``, calibration samples and
-the stochastic rung are ROADMAP Queue A items 10 and 11.
+What ``run`` does: takes the objective's view of the tensor, builds or
+reuses the plan for it (``repro_torch.core.plan``, content-cached on the
+host), derives each mode's static step parameters exactly as the reference
+does (``_mode_specs``, which settles ``warm_start="auto"`` per mode),
+uploads each ``ModePartition`` to the device as it is (plus the comm
+spaces' gather maps), and runs the sweeps; the objective refines each
+mode's factor after the row-perm restore. The reference's compiled-step
+and upload caches, ``prepare``/``stage_upload``, ``profile_phases``,
+calibration samples and the stochastic rung are ROADMAP Queue A items 10
+and 11.
 """
 
 from __future__ import annotations
@@ -35,11 +38,13 @@ from repro_torch.core.hooi import Decomposition, random_factors
 from repro_torch.core.lanczos import effective_block_size, lanczos_niter
 from repro_torch.core.plan import (PartitionPlan, last_plan_call_cache_hit,
                                    plan as build_plan, plan_cache_stats)
+from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, sketch_block_size,
+                                     sketch_niter)
 from repro_torch.device import full_precision_matmul, resolve_device
 from repro_torch.engine.comm import comm_maps, resolve_backend
 from repro_torch.engine.objective import resolve_objective
-from repro_torch.engine.oracle import (count_z_passes, resolve_block_size,
-                                       resolve_warm_start)
+from repro_torch.engine.oracle import (choose_warm_start, count_z_passes,
+                                       resolve_block_size, resolve_warm_start)
 from repro_torch.engine.steps import make_mode_step_fn
 from repro_torch.engine.sweep import run_hooi_sweeps
 from repro_torch.engine.zbuild import resolve_fused_zbuild, resolve_precision
@@ -75,7 +80,13 @@ class DistHooiStats:
     * ``lanczos_block`` — per mode, the effective panel width (1 = vector);
     * ``fused_zbuild`` — the mode steps ran ``kron_segsum_oracle``;
     * ``z_passes`` — per mode, counted passes over Z per sweep
-      (``engine.oracle.count_z_passes``);
+      (``engine.oracle.count_z_passes``, the sketch's seed and power passes
+      included);
+    * ``objective`` — the objective that ran (``"tucker"``,
+      ``"completion"`` or ``"nn"``), and ``objective_metrics`` its extra
+      per-sweep stats (completion's ``holdout_rmse``), None when it has none;
+    * ``warm_start`` — per mode, the warm start that ran (``"none"`` or
+      ``"sketch"``);
     * ``mode_spectra`` — per mode, the last sweep's singular-value
       estimates.
     """
@@ -96,6 +107,9 @@ class DistHooiStats:
     lanczos_block: dict | None = None
     fused_zbuild: bool = False
     z_passes: dict | None = None
+    objective: str = "tucker"
+    objective_metrics: dict | None = None
+    warm_start: dict | None = None
     mode_spectra: dict | None = None
 
 
@@ -109,6 +123,7 @@ class _ModeSpec:
     precision: str = "f32"
     block_size: int = 1  # effective (clamped) Lanczos panel width
     fused_zbuild: bool = False
+    warm_start: str = "none"  # resolved per mode ("none" | "sketch")
 
 
 def upload_mode(mp, dev: torch.device) -> dict:
@@ -140,11 +155,18 @@ class HooiExecutor:
         self.device = resolve_device(device)
 
     def _check_plan(self, pl: PartitionPlan, t: SparseTensor,
-                    core_dims: Sequence[int], path: str) -> None:
-        """Refuse a prebuilt plan that does not describe this run."""
+                    core_dims: Sequence[int], path: str,
+                    objective: str = "tucker") -> None:
+        """Refuse a prebuilt plan that does not describe this run (``t`` is
+        the objective's view)."""
         if pl.P != self.P:
             raise ValueError(
                 f"plan built for P={pl.P}, executor has P={self.P}")
+        if pl.objective != objective:
+            raise ValueError(
+                f"plan was built for objective={pl.objective!r}, asked to "
+                f"run {objective!r} — its view, metrics and cost describe "
+                "a different training tensor; build a matching plan")
         if pl.fingerprint is not None \
                 and pl.fingerprint != t.fingerprint():
             raise ValueError(
@@ -160,7 +182,8 @@ class HooiExecutor:
 
     def _mode_specs(self, pl: PartitionPlan, core_dims: Sequence[int],
                     path: str, precision: str = "f32", block_size: int = 1,
-                    fused_zbuild: bool = False) -> list[_ModeSpec]:
+                    fused_zbuild: bool = False,
+                    warm_start: str = "none") -> list[_ModeSpec]:
         """Per-mode static step parameters, the reference's arithmetic.
 
         * ``backend``: ``path="auto"`` honors a plan costed with
@@ -171,6 +194,10 @@ class HooiExecutor:
           ``min(L_n, K_n)``) — the numbers the local path derives, so P=1
           trajectories coincide. Block iterations under the block driver.
         * ``block_size``: clamped per mode with ``effective_block_size``.
+        * ``warm_start``: ``"auto"`` settles per mode (``choose_warm_start``
+          on the geometry the local path sees, so P=1 parity holds). A
+          sketch mode runs the widened ``sketch_block_size`` panel, the
+          ``sketch_niter`` budget and never the fused build.
         """
         parts = pl.parts
         eff = tuple(min(int(k), int(mp.L))
@@ -189,11 +216,18 @@ class HooiExecutor:
                 backend = resolve_backend(
                     path, self.P, pl.comm(n) if path == "auto" else None)
             s_eff = effective_block_size(K_n, int(mp.L), khat, block_size)
-            niter = lanczos_niter(K_n, int(mp.L), khat,
-                                  s_eff if (fused_zbuild or s_eff > 1) else 1)
+            ws = choose_warm_start(warm_start, K_n, int(mp.L), khat, s_eff,
+                                   fused_zbuild)
+            fz_n = fused_zbuild and ws != "sketch"
+            if ws == "sketch":
+                s_eff = sketch_block_size(K_n, int(mp.L), khat, block_size)
+                niter = sketch_niter(K_n, int(mp.L), khat, s_eff)
+            else:
+                niter = lanczos_niter(K_n, int(mp.L), khat,
+                                      s_eff if (fz_n or s_eff > 1) else 1)
             specs.append(_ModeSpec(
                 backend=backend, K_n=K_n, niter=niter, precision=precision,
-                block_size=s_eff, fused_zbuild=fused_zbuild))
+                block_size=s_eff, fused_zbuild=fz_n, warm_start=ws))
         return specs
 
     def run(
@@ -226,9 +260,13 @@ class HooiExecutor:
         ``use_fused_oracle`` routes the Lanczos products through
         ``oracle_pair``; ``precision``, ``lanczos_block`` and
         ``fused_zbuild`` are the reference's roofline knobs (each None
-        honors its ``REPRO_*`` variable); ``warm_start`` and ``objective``
-        take only ``"none"`` and ``"tucker"``. ``init_factors`` replaces the
-        seeded random start (factors of shape ``(L_n, min(L_n, K_n))``).
+        honors its ``REPRO_*`` variable). ``warm_start`` (``"none"``,
+        ``"sketch"``, ``"auto"``; None honors ``REPRO_WARM_START``) seeds the
+        block driver with the factor-sketched panel. ``objective`` (None
+        honors ``REPRO_OBJECTIVE``; a name or an ``Objective``) selects what
+        the sweeps optimize: the plan partitions its view of ``t``, and a
+        prebuilt plan must have been built for it. ``init_factors`` replaces
+        the seeded random start (factors of shape ``(L_n, min(L_n, K_n))``).
         ``draw`` fills the random-draw seam (``repro_torch.random``);
         ``on_sweep(it, seconds, fit)`` observes every sweep.
         """
@@ -238,16 +276,17 @@ class HooiExecutor:
         dev = self.device
         full_precision_matmul()
         obj = resolve_objective(objective)
+        t = obj.prepare_tensor(t)
         prec = resolve_precision(precision)
         blk = resolve_block_size(lanczos_block)
         fz = resolve_fused_zbuild(fused_zbuild)
-        resolve_warm_start(warm_start)  # only "none" exists: refuses others
+        warm = resolve_warm_start(warm_start)
         fused = bool(use_fused_oracle)
 
         t_plan = time.perf_counter()
         if isinstance(scheme, PartitionPlan):
             pl = scheme
-            self._check_plan(pl, t, core_dims, path)
+            self._check_plan(pl, t, core_dims, path, obj.name)
             cache_hit = False
         else:
             pl = build_plan(t, scheme, self.P, core_dims=tuple(core_dims),
@@ -263,11 +302,12 @@ class HooiExecutor:
             factors = convert.factors(init_factors, dev)
         parts = pl.parts
         specs = self._mode_specs(pl, core_dims, path, precision=prec,
-                                 block_size=blk, fused_zbuild=fz)
+                                 block_size=blk, fused_zbuild=fz,
+                                 warm_start=warm)
         steps = [make_mode_step_fn(
             dict(mode=n, R_pad=mp.R_pad, Lp=mp.Lp, P=mp.P, use_fused=fused,
                  precision=sp.precision, block_size=sp.block_size,
-                 fused_zbuild=sp.fused_zbuild),
+                 fused_zbuild=sp.fused_zbuild, warm_start=sp.warm_start),
             sp.backend, sp.K_n, sp.niter)
             for n, (mp, sp) in enumerate(zip(parts, specs))]
         arrs = [upload_mode(mp, dev) for mp in parts]
@@ -280,8 +320,11 @@ class HooiExecutor:
             F, sv = steps[n](arrs[n], facs, kk)
             spectra[n] = sv
             # the stacked (P, Lp, k) rows are in relabelled order: flatten
-            # over the ranks, then restore the original row order
-            return F.reshape(-1, F.shape[-1])[row_perms[n]]
+            # over the ranks, restore the original row order, then let the
+            # objective refine the full-row factor — the update the local
+            # path applies, so P=1 parity covers every objective
+            return obj.refine_factor(F.reshape(-1, F.shape[-1])[row_perms[n]],
+                                     sv)
 
         sweep_s: list[float] = []
 
@@ -290,9 +333,11 @@ class HooiExecutor:
             if on_sweep is not None:
                 on_sweep(it, seconds, fit)
 
+        objective_metrics: dict = {}
         dec, fits = run_hooi_sweeps(coords, values, t, factors, key,
                                     n_invocations, mode_step,
-                                    on_sweep=report)
+                                    on_sweep=report, objective=obj,
+                                    metrics_out=objective_metrics)
         stats = DistHooiStats(
             fits=fits, sweep_s=sweep_s,
             comm={n: pl.comm(n) for n in range(N)},
@@ -308,8 +353,15 @@ class HooiExecutor:
             precision=prec,
             lanczos_block={n: specs[n].block_size for n in range(N)},
             fused_zbuild=fz,
-            z_passes={n: count_z_passes(specs[n].niter, specs[n].fused_zbuild)
-                      for n in range(N)},
+            z_passes={n: count_z_passes(
+                specs[n].niter, specs[n].fused_zbuild,
+                warm_start=specs[n].warm_start,
+                power_iters=DEFAULT_POWER_ITERS
+                if specs[n].warm_start == "sketch" else 0)
+                for n in range(N)},
+            objective=obj.name,
+            objective_metrics=objective_metrics or None,
+            warm_start={n: specs[n].warm_start for n in range(N)},
             mode_spectra={n: v.cpu().numpy() for n, v in spectra.items()}
             or None,
         )

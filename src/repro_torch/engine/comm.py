@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.core.lanczos import rank_sum
 
-__all__ = ["OracleSpace", "make_comm_space", "comm_maps", "resolve_backend",
+__all__ = ["OracleSpace", "make_comm_space", "comm_maps", "gather_rows",
+           "resolve_backend",
            "cheaper_backend", "backend_comm_bytes", "COMM_BACKENDS",
            "PATH_BACKENDS", "BACKEND_BYTES_KEY"]
 
@@ -118,7 +119,13 @@ def comm_maps(mp) -> dict[str, np.ndarray]:
       adds into (``Lp`` = none);
     * ``u_src`` (P, R_pad): the entry of the flattened u-space a local row
       reads — its relabelled row id (the flattened ``(P, Lp)`` shards of the
-      boundary space are the replicated vector of the psum space).
+      boundary space are the replicated vector of the psum space);
+    * ``f_src`` (P, R_pad): the original (factor) row id of each local row,
+      -1 for a row that holds no element. The sketch warm start gathers the
+      mode's factor rows through it. The reference recovers the same ids in
+      its step with a scatter-max over the element coordinates; here they
+      come once per plan from each rank's real elements, which all share
+      their row's original id.
     """
     P, R_pad, Lp, S_pad = mp.P, mp.R_pad, mp.Lp, mp.S_pad
     L_sent = P * Lp
@@ -144,11 +151,15 @@ def comm_maps(mp) -> dict[str, np.ndarray]:
     # a local row reads the u-shard entry of its relabelled row: the
     # flattened (P, Lp) shards are the global row vector, owned or not
     u_src = np.where(real, mp.row_gid, -1).astype(np.int64)
+
+    f_src = np.full((P, R_pad), -1, np.int64)
+    for p, k in enumerate(mp.e_per_rank):
+        f_src[p, mp.local_rows[p, :k]] = mp.coords[p, :k, mp.mode]
     return {"gid_src": gid_src, "own_src": own_src, "bnd_src": bnd_src,
-            "bnd_dst": bnd_dst, "u_src": u_src}
+            "bnd_dst": bnd_dst, "u_src": u_src, "f_src": f_src}
 
 
-def _gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``src[idx]`` over dim 0 with -1 reading 0; the result has shape
     ``idx.shape + src.shape[1:]``."""
     flat = idx.reshape(-1)
@@ -164,10 +175,10 @@ def _psum_space(ms: dict, maps: dict, zmv, zrmv) -> OracleSpace:
     gid_src, u_src = maps["gid_src"], maps["u_src"]
 
     def wrap(local):  # (P*R_pad[, s]) -> (L_sent[, s]) replicated
-        return rank_sum(_gather(local, gid_src))
+        return rank_sum(gather_rows(local, gid_src))
 
     def rmatvec(u):  # u replicated (L_sent[, s])
-        return rank_sum(zrmv(_gather(u, u_src)))
+        return rank_sum(zrmv(gather_rows(u, u_src)))
 
     def finalize(left):  # (L_sent, k) replicated -> (P, Lp, k) shards
         return left.reshape(P, Lp, *left.shape[1:])
@@ -187,7 +198,7 @@ def _boundary_space(ms: dict, maps: dict, zmv, zrmv) -> OracleSpace:
         tail = tuple(local.shape[1:])
         shard = torch.zeros((P, Lp + 1) + tail, dtype=local.dtype,
                             device=local.device)
-        shard[:, :Lp] = _gather(local, own_src)
+        shard[:, :Lp] = gather_rows(local, own_src)
         flat = shard.view((P * (Lp + 1),) + tail)
         # boundary rows computed elsewhere add into their owner's row, one
         # slot column at a time: within a column each rank adds to its own
@@ -195,12 +206,12 @@ def _boundary_space(ms: dict, maps: dict, zmv, zrmv) -> OracleSpace:
         # column collide and the sums run in slot order
         for j in range(bnd_src.shape[1]):
             dst = rank_base + bnd_dst[:, j]
-            flat[dst] = flat[dst] + _gather(local, bnd_src[:, j])
+            flat[dst] = flat[dst] + gather_rows(local, bnd_src[:, j])
         return shard[:, :Lp]
 
     def rmatvec(u_shard):  # (P, Lp[, s]) -> (K_hat[, s])
         u_flat = u_shard.reshape((P * Lp,) + tuple(u_shard.shape[2:]))
-        return rank_sum(zrmv(_gather(u_flat, u_src)))
+        return rank_sum(zrmv(gather_rows(u_flat, u_src)))
 
     return OracleSpace(lambda x: wrap(zmv(x)), rmatvec, Lp, P,
                        lambda left: left, wrap)

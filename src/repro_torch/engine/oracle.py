@@ -1,8 +1,7 @@
 """Oracle stage: how a mode step answers the Lanczos products for its Z.
 
-The port of ``src/repro/engine/oracle.py`` without its sketch warm start
-(ROADMAP Queue A item 8). The SVD component
-only consumes Z through ``Z @ x`` and ``Zᵀ @ y`` (paper §3):
+The port of ``src/repro/engine/oracle.py``. The SVD component only consumes
+Z through ``Z @ x`` and ``Zᵀ @ y`` (paper §3):
 
 * ``fused=False`` — plain ``torch.matmul`` products, as the reference leaves
   them to XLA.
@@ -14,7 +13,9 @@ only consumes Z through ``Z @ x`` and ``Zᵀ @ y`` (paper §3):
 
 ``stacked_products`` gives the same two products for the distributed
 step's stacked ranks; ``solve_oracle``/``solve_oracle_block`` run the
-vector and the block Lanczos drivers.
+vector and the block Lanczos drivers. ``resolve_warm_start``,
+``choose_warm_start`` and ``count_z_passes`` settle the sketch warm start
+(``core.sketch``) per mode and count what each choice reads of Z.
 """
 
 from __future__ import annotations
@@ -25,13 +26,15 @@ import torch
 
 from repro_torch import envknobs
 from repro_torch.core.lanczos import (gk_bidiag, gk_block_bidiag,
-                                      svd_from_bidiag)
+                                      lanczos_niter, svd_from_bidiag)
+from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, sketch_block_size,
+                                     sketch_niter)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.random import Key
 
 __all__ = ["z_products", "stacked_products", "solve_oracle",
            "solve_oracle_block", "resolve_block_size", "resolve_warm_start",
-           "count_z_passes"]
+           "choose_warm_start", "count_z_passes"]
 
 
 def resolve_block_size(block_size: int | None) -> int:
@@ -47,26 +50,53 @@ def resolve_block_size(block_size: int | None) -> int:
 
 
 def resolve_warm_start(warm_start: str | None) -> str:
-    """Oracle warm start: ``None`` honors ``REPRO_WARM_START``, else
-    ``"none"``, the only one the port has."""
+    """Oracle warm start: ``"none"``, ``"sketch"`` or ``"auto"``. ``None``
+    honors ``REPRO_WARM_START``, else ``"none"``. ``"auto"`` is settled per
+    mode by ``choose_warm_start``."""
     if warm_start is None:
         warm_start = envknobs.warm_start() or "none"
     if warm_start not in envknobs.WARM_STARTS:
         raise ValueError(f"unknown warm_start {warm_start!r} "
                          f"(expected one of {envknobs.WARM_STARTS})")
-    if warm_start != "none":
-        raise NotImplementedError(
-            f"warm_start={warm_start!r}: sketched warm starts are ROADMAP "
-            "Queue A item 8")
     return warm_start
 
 
-def count_z_passes(niter: int, fused_zbuild: bool = False) -> int:
+def choose_warm_start(
+    warm_start: str,
+    k: int,
+    nrows: int,
+    ncols: int,
+    block_size: int = 1,
+    fused_zbuild: bool = False,
+    power_iters: int = DEFAULT_POWER_ITERS,
+) -> str:
+    """Per-mode resolution of ``warm_start="auto"``: the sketch exactly when
+    it strictly reduces counted Z passes for this mode's geometry (seed and
+    power passes included; the sketch forgoes the fused first product and
+    runs the widened ``sketch_block_size`` panel). Other values pass."""
+    if warm_start != "auto":
+        return warm_start
+    full = count_z_passes(
+        lanczos_niter(k, nrows, ncols, block_size), fused_zbuild)
+    s_sk = sketch_block_size(k, nrows, ncols, block_size)
+    sk = count_z_passes(
+        sketch_niter(k, nrows, ncols, s_sk),
+        False, warm_start="sketch", power_iters=power_iters)
+    return "sketch" if sk < full else "none"
+
+
+def count_z_passes(niter: int, fused_zbuild: bool = False, *,
+                   warm_start: str = "none",
+                   power_iters: int = 0) -> int:
     """Counted passes over Z for one mode step: one write at build time and
     two reads (``Z @ x``, ``Zᵀ @ y``) per oracle iteration, block
     iterations under block Lanczos; the fused build serves the first
-    ``Z @ V_1`` and saves one read."""
-    return 1 + 2 * int(niter) - (1 if fused_zbuild else 0)
+    ``Z @ V_1`` and saves one read. A sketch warm start adds one read for
+    the seed ``Zᵀ F`` and two per power iteration."""
+    passes = 1 + 2 * int(niter) - (1 if fused_zbuild else 0)
+    if warm_start == "sketch":
+        passes += 1 + 2 * int(power_iters)
+    return passes
 
 
 def z_products(Z: torch.Tensor, *,

@@ -1,10 +1,9 @@
 """Mode steps composed from the engine stages.
 
-The port of ``src/repro/engine/steps.py`` without its sketch branches
-(ROADMAP Queue A item 8). A HOOI mode step is the **Z-build**
-(``engine.zbuild``) followed by the **oracle** (``engine.oracle``: the Z
-products and the Lanczos body) and, for the distributed step, the **comm
-backend** (``engine.comm``):
+The port of ``src/repro/engine/steps.py``. A HOOI mode step is the
+**Z-build** (``engine.zbuild``) followed by the **oracle**
+(``engine.oracle``: the Z products and the Lanczos body) and, for the
+distributed step, the **comm backend** (``engine.comm``):
 
 * ``make_mode_step_fn`` — one distributed mode step over the P ranks,
   stacked along a leading dimension on one device (the reference wraps the
@@ -13,7 +12,10 @@ backend** (``engine.comm``):
   and no comm space: what ``repro_torch.core.hooi`` runs.
 
 Both run the vector driver, or the block driver when the panel is wider
-than 1 or the fused Z-build is on.
+than 1, the fused Z-build is on, or the mode runs the sketch warm start
+(``warm_start="sketch"``: the factor-seeded start panel of
+``core.sketch``, one power iteration through the oracle, then the reduced
+``sketch_niter`` budget; a sketch mode never takes the fused build).
 """
 
 from __future__ import annotations
@@ -24,10 +26,14 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.lanczos import (block_start_panel, gk_block_bidiag,
-                                      lanczos_niter, svd_from_bidiag)
+                                      lanczos_niter, rank_sum,
+                                      svd_from_bidiag)
+from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, power_refine,
+                                     seeded_start_panel, sketch_block_size,
+                                     sketch_niter)
 from repro_torch.random import Key
 
-from .comm import make_comm_space
+from .comm import gather_rows, make_comm_space
 from .oracle import (solve_oracle, solve_oracle_block, stacked_products,
                      z_products)
 from .zbuild import build_local_z, build_local_z_oracle
@@ -52,9 +58,9 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int):
     """One distributed mode step over the stacked ranks.
 
     ``ms`` is the static partition signature (mode, R_pad, Lp, P,
-    use_fused, precision, block_size, fused_zbuild); ``backend`` one of
-    ``engine.comm``'s names; ``niter`` counts block iterations when the
-    block driver runs.
+    use_fused, precision, block_size, fused_zbuild, warm_start); ``backend``
+    one of ``engine.comm``'s names; ``niter`` counts block iterations when
+    the block driver runs.
 
     ``fn(arrs, factors, key) -> (F, S)``: ``arrs`` holds the partition's
     elements flattened over the ranks (``coords`` (P*E_pad, N), ``values``,
@@ -64,11 +70,21 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int):
     is sorted: one Z-build launch serves all ranks and gives their local Z
     matrices stacked as ``(P*R_pad, K_hat)``. ``F`` is ``(P, Lp, K_n)``,
     each rank's owned rows in relabelled order.
+
+    ``warm_start="sketch"`` seeds the block driver with ``Σ_p Z_pᵀ
+    F_n[orig_p][:, :w]``: the map ``f_src`` (built once per plan,
+    ``comm.comm_maps``) gives each local row's original row id, the gather
+    of those factor rows is one stacked ``rmatvec`` (one ``oracle_pair``
+    launch for all ranks when fused) and ``rank_sum`` adds the ranks in
+    order. The spec builder turns the fused build off for sketch modes.
     """
     P, R_pad, mode = ms["P"], ms["R_pad"], ms["mode"]
     precision = ms.get("precision", "f32")
     block_size = int(ms.get("block_size", 1))
     fused_zbuild = bool(ms.get("fused_zbuild", False))
+    warm_start = ms.get("warm_start", "none")
+    assert not (fused_zbuild and warm_start == "sketch"), \
+        "sketch warm start excludes the fused first product (spec builder)"
 
     def fn(arrs: dict, factors: Sequence[torch.Tensor], key: Key):
         Khat = _khat(factors, mode)
@@ -84,7 +100,15 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int):
                               factors, mode, P * R_pad, precision=precision)
         zmv, zrmv = stacked_products(Z, P, fused=ms.get("use_fused", False))
         space = make_comm_space(backend, ms, arrs, zmv, zrmv)
-        if fused_zbuild or block_size > 1:
+        if warm_start == "sketch":
+            F_n = factors[mode]
+            w = min(block_size, int(F_n.shape[1]))
+            seed = rank_sum(zrmv(gather_rows(F_n[:, :w].contiguous(),
+                                             arrs["f_src"])))
+            first_panel = seeded_start_panel(seed, key, Khat, block_size)
+            first_panel = power_refine(space.matvec, space.rmatvec,
+                                       first_panel, DEFAULT_POWER_ITERS)
+        if warm_start == "sketch" or fused_zbuild or block_size > 1:
             first_product = None if ZV1 is None else space.wrap_matvec_out(ZV1)
             left, S = solve_oracle_block(
                 space.matvec, space.rmatvec, space.dim_u, Khat, K_n, niter,
@@ -113,13 +137,21 @@ def local_mode_step(
     precision: str = "f32",
     block_size: int = 1,
     fused_zbuild: bool = False,
+    warm_start: str = "none",
     timings: dict | None = None,
+    objective=None,
 ) -> torch.Tensor:
     """One single-process mode step; returns the refined factor (num_rows, k).
 
     ``block_size`` is the effective (clamped) panel width; ``block_size >
     1`` or ``fused_zbuild`` runs the block driver, as the distributed step
     does, so ``hooi`` and ``dist_hooi(P=1)`` walk the same Krylov space.
+    ``warm_start="sketch"`` runs the block driver from the factor-seeded
+    panel (``Zᵀ F_n[:, :w]`` through the oracle's ``rmatvec``, then one
+    power iteration) at the widened ``sketch_block_size`` and, when
+    ``niter`` is not given, the reduced ``sketch_niter`` budget; it turns
+    ``fused_zbuild`` off. ``objective`` (an ``engine.objective.Objective``)
+    post-processes the solve with ``refine_factor(left, S)``.
     ``timings`` (optional) accumulates blocking per-phase wall times under
     ``"ttm"``/``"svd"``. A given ``niter`` is clamped as the reference's
     ``lanczos_bidiag`` clamps it on the vector driver and taken as it is (in
@@ -128,7 +160,10 @@ def local_mode_step(
     k = int(factors[mode].shape[1]) if k is None else int(k)
     Khat = _khat(factors, mode)
     block_size = int(block_size)
-    blockish = fused_zbuild or block_size > 1
+    if warm_start == "sketch":
+        fused_zbuild = False
+        block_size = sketch_block_size(k, num_rows, Khat, block_size)
+    blockish = fused_zbuild or block_size > 1 or warm_start == "sketch"
     t0 = time.perf_counter()
     first_panel = first_product = None
     if fused_zbuild:
@@ -144,20 +179,29 @@ def local_mode_step(
     t1 = time.perf_counter()
     matvec, rmatvec = z_products(Z, fused=use_fused_oracle)
     if niter is None:
-        niter = lanczos_niter(k, num_rows, Khat,
-                              block_size if blockish else 1)
+        niter = (sketch_niter(k, num_rows, Khat, block_size)
+                 if warm_start == "sketch"
+                 else lanczos_niter(k, num_rows, Khat,
+                                    block_size if blockish else 1))
     elif not blockish:
         niter = max(int(min(niter, num_rows, Khat)),
                     min(k, num_rows, Khat))
+    if warm_start == "sketch":
+        seed = rmatvec(factors[mode][:, :min(block_size, k)].contiguous())
+        first_panel = seeded_start_panel(seed, key, Khat, block_size)
+        first_panel = power_refine(matvec, rmatvec, first_panel,
+                                   DEFAULT_POWER_ITERS)
     if blockish:
         U, B = gk_block_bidiag(matvec, rmatvec, num_rows, Khat, niter,
                                block_size, key, axis=None,
                                first_panel=first_panel,
                                first_product=first_product, device=Z.device)
-        left, _S = svd_from_bidiag(U, B, k, key, axis=None)
+        left, S = svd_from_bidiag(U, B, k, key, axis=None)
     else:
-        left, _S = solve_oracle(matvec, rmatvec, num_rows, Khat, k, niter,
-                                key, device=Z.device)
+        left, S = solve_oracle(matvec, rmatvec, num_rows, Khat, k, niter,
+                               key, device=Z.device)
+    if objective is not None:
+        left = objective.refine_factor(left, S)
     if timings is not None:
         _sync(left)
         t2 = time.perf_counter()

@@ -33,14 +33,22 @@ def run_hooi_sweeps(
     n_invocations: int,
     mode_step: Callable[[int, Sequence[torch.Tensor], Key], torch.Tensor],
     on_sweep: Callable[[int, float, float], None] | None = None,
+    objective=None,
+    metrics_out: dict | None = None,
 ):
     """Run ``n_invocations`` HOOI sweeps, returning (Decomposition, fits).
 
-    ``mode_step(n, factors, key) -> new factor``. ``on_sweep(it, seconds,
-    fit)`` observes each sweep's wall time up to the device finishing its
-    mode steps (the core and fit come after). The core is (re)finalized
-    from the final factors, so ``n_invocations=0`` still yields a valid
-    decomposition of the bootstrap factors.
+    ``mode_step(n, factors, key) -> new factor``, in original row order.
+    ``on_sweep(it, seconds, fit)`` observes each sweep's wall time up to the
+    device finishing its mode steps (the core and fit come after). The core
+    is (re)finalized from the final factors, so ``n_invocations=0`` still
+    yields a valid decomposition of the bootstrap factors.
+
+    ``objective`` (an ``engine.objective.Objective``) owns the per-sweep
+    accounting: ``finalize_core``, ``fit`` and ``sweep_metrics``; ``None``
+    runs the historical inline ``fit_score``, which ``TuckerObjective``
+    reproduces bitwise. ``metrics_out`` collects the objective's extra
+    per-sweep stats (completion's ``holdout_rmse``).
     """
     from repro_torch.core.hooi import Decomposition, fit_score
     from repro_torch.core.ttm import core_from_factors
@@ -56,10 +64,18 @@ def run_hooi_sweeps(
             torch.cuda.synchronize(coords.device)
         sweep_s = time.perf_counter() - t0
         core = core_from_factors(coords, values, factors)
-        fit = fit_score(t, Decomposition(core=core, factors=factors))
+        if objective is None:
+            fit = fit_score(t, Decomposition(core=core, factors=factors))
+        else:
+            core = objective.finalize_core(core, factors)
+            fit = objective.fit(t, core, factors)
+            if metrics_out is not None:
+                objective.sweep_metrics(metrics_out, t, core, factors)
         fits.append(fit)
         if on_sweep is not None:
             on_sweep(it, sweep_s, fit)
     if core is None:  # n_invocations == 0: finalize the initial factors
         core = core_from_factors(coords, values, factors)
+        if objective is not None:
+            core = objective.finalize_core(core, factors)
     return Decomposition(core=core, factors=factors), fits

@@ -94,7 +94,10 @@ def test_kron_segsum_kernel_empty_and_checks(cuda):
 
 @pytest.mark.parametrize("R,K,s", [(1, 1, 1), (300, 100, 1), (28818, 100, 1),
                                    (28818, 100, 8), (40, 1000, 3),
-                                   (1000, 513, 16)])
+                                   (1000, 513, 16),
+                                   # the sketch panel: one pass of 8 columns
+                                   # and a tail of 2
+                                   (28818, 100, 10), (12092, 100, 10)])
 def test_oracle_pair_kernel_matches_plain(cuda, R, K, s):
     g = torch.Generator(device="cpu").manual_seed(R + K + s)
     Z = torch.randn((R, K), generator=g).to(cuda)
@@ -157,6 +160,8 @@ def test_core_on_card_matches_plain(cuda):
     (20000, 4, 25, 64, 0.6, 8),    # hub row spanning many chunks
     (4000, 100, 10, 500, 0.0, 8),  # K_hat = 1000 (4-mode, K = 10)
     (2048, 3, 3, 4096, 0.0, 64),   # a wide panel, sparse rows
+    (5000, 10, 10, 300, 0.0, 14),  # range_finder's k + oversample
+    (20000, 4, 25, 64, 0.6, 14),
 ])
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 def test_kron_segsum_oracle_kernel_matches_plain(cuda, E, Ka, Kb, R, hub, s,
@@ -284,7 +289,9 @@ def test_kron_segsum_gather_bitwise_row_form(cuda, case, precision):
 
 @pytest.mark.parametrize("P,R,K,s", [(4, 7206, 100, 8), (4, 3024, 100, 1),
                                      (3, 500, 37, 5), (2, 40, 1000, 16),
-                                     (1, 28818, 100, 1)])
+                                     (1, 28818, 100, 1),
+                                     # the sketch panel on stacked ranks
+                                     (4, 7206, 100, 10), (4, 3024, 100, 10)])
 def test_oracle_pair_stacked_bitwise_single_calls(cuda, P, R, K, s):
     """A stacked call gives each rank the bits of a single call on that
     rank's rows, within 2e-4 of the plain version; reruns bitwise."""
@@ -308,3 +315,64 @@ def test_oracle_pair_stacked_bitwise_single_calls(cuda, P, R, K, s):
         Zp = Z[p * R:(p + 1) * R]
         assert torch.equal(got[p], oracle_pair(Zp, None, y[p])[1])
         assert torch.equal(gx[p * R:(p + 1) * R], oracle_pair(Zp, x, None)[0])
+
+
+def test_range_finder_gather_form_at_sketch_width(cuda):
+    """``range_finder``'s ``(Z, Z·Ω)`` at s = k + oversample = 14 through
+    the gather form of ``kron_segsum_oracle`` on the card: Z bitwise the
+    row form's, ZΩ within 2e-4 of the plain version, and the range finder's
+    subspace the CPU path's."""
+    from repro_torch.core import sketch
+
+    coords, values, rows, f = _gather_inputs(9, (300, 200, 100), (10,) * 3,
+                                             0, cuda)
+    X = sketch.test_matrix(make_key(2), 100, 14, "gauss", cuda)
+    before = kron_segsum_oracle.launches
+    zo, zx = ops.penultimate_sorted_oracle(coords, values, rows, f, 0, 300,
+                                           X)
+    zo2, zx2 = ops.penultimate_sorted_oracle(coords, values, rows, f, 0, 300,
+                                             X)
+    torch.cuda.synchronize()
+    assert kron_segsum_oracle.launches == before + 2
+    assert torch.equal(zo, zo2) and torch.equal(zx, zx2)
+    a, b = ops._split_ab(coords, values, f, 0)
+    want_zo, want_zx = kron_segsum_oracle(rows, a, b, 300, X)
+    assert torch.equal(zo, want_zo) and torch.equal(zx, want_zx)
+    assert _rel_err(zx, ref.kron_segsum_oracle_ref(rows, a, b, 300, X)[1]) \
+        <= 2e-4
+    U, sv = sketch.range_finder(coords, values, rows, f, 0, 300, 10,
+                                make_key(5), power_iters=1)
+    Uc, svc = sketch.range_finder(coords.cpu(), values.cpu(), rows.cpu(),
+                                  [F.cpu() for F in f], 0, 300, 10,
+                                  make_key(5), power_iters=1)
+    U, Uc = U.cpu().numpy(), Uc.numpy()
+    np.testing.assert_allclose(U @ U.T, Uc @ Uc.T, atol=1e-4)
+    np.testing.assert_allclose(sv.cpu().numpy(), svc.numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("warm,objective", [("sketch", "tucker"),
+                                            ("auto", "completion"),
+                                            ("none", "nn")])
+def test_warm_starts_and_objectives_on_card_match_cpu(cuda, warm, objective):
+    """The sketch warm start and the objectives on the card (every kernel
+    at the sketch's widths) against the port's plain CPU path, single
+    process and P = 4 stacked ranks on both backends."""
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    kw = dict(n_invocations=2, seed=2, use_fused_oracle=True,
+              warm_start=warm, objective=objective)
+    before = oracle_pair.launches
+    out_g, out_c = {}, {}
+    dec_g, fits_g = hooi.hooi(t, (5, 5, 5), metrics_out=out_g, **kw)
+    assert oracle_pair.launches > before
+    dec_c, fits_c = hooi.hooi(t, (5, 5, 5), metrics_out=out_c, device="cpu",
+                              **kw)
+    np.testing.assert_allclose(fits_g, fits_c, rtol=0, atol=1e-4)
+    for key in out_c:
+        np.testing.assert_allclose(out_g[key], out_c[key], rtol=0, atol=1e-5)
+    if objective == "nn":
+        assert all(float(F.min()) >= 0.0 for F in dec_g.factors)
+    for path in ("liteopt", "baseline"):
+        _, st_g = dist_hooi(t, (5, 5, 5), 4, path=path, **kw)
+        _, st_c = dist_hooi(t, (5, 5, 5), 4, path=path, device="cpu", **kw)
+        assert st_g.warm_start == st_c.warm_start
+        np.testing.assert_allclose(st_g.fits, st_c.fits, rtol=0, atol=1e-4)

@@ -220,6 +220,25 @@ def test_comm_spaces_match_reference_semantics(request, fixture, scheme):
         assert sb.axis == mp.P and sp.axis is None
 
 
+@pytest.mark.parametrize("P,path", [(1, "liteopt"), (4, "baseline"),
+                                    (4, "liteopt")])
+def test_dist_bf16_within_bound_all_backends(lowrank_tensor, P, path):
+    """Twin of ``test_roofline.py``'s: on the stacked ranks of every comm
+    backend the bf16 Z-build keeps the fit within 1e-2 of f32, and the
+    stats report the precision that ran."""
+    t = _port(lowrank_tensor)
+    kw = dict(scheme="lite", n_invocations=2, seed=0, path=path,
+              device="cpu")
+    _, sf = dist_hooi(t, (2, 2, 2), P, **kw)
+    _, sb = dist_hooi(t, (2, 2, 2), P, precision="bf16", **kw)
+    assert sb.precision == "bf16" and sf.precision == "f32"
+    assert set(sb.comm_backends.values()) == \
+        {{"liteopt": "boundary", "baseline": "psum"}[path]
+         if P > 1 else "local"}
+    assert sb.fits[-1] > 0.99
+    assert max(abs(a - b) for a, b in zip(sf.fits, sb.fits)) < 1e-2
+
+
 def test_dist_rerun_is_bitwise_and_reports(skewed_tensor):
     t = _port(skewed_tensor)
     kw = dict(n_invocations=2, seed=3, path="auto", lanczos_block=4,
@@ -252,8 +271,10 @@ def test_executor_checks(monkeypatch, small_tensor):
         ex.run(t, (3, 3, 3), "lite", path="nowhere")
     with pytest.raises(ValueError, match="executor has P=4"):
         dist_hooi(t, (3, 3, 3), 2, executor=ex)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        ex.run(t, (3, 3, 3), pl, warm_start="sketch")
+    with pytest.raises(ValueError, match="objective"):
+        ex.run(t, (3, 3, 3), pl, objective="nn")
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        ex.run(t, (3, 3, 3), pl, precision="auto")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dist_hooi(t, (3, 3, 3), 4)

@@ -196,10 +196,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     dict(precision="auto"),
 ])
 def test_out_of_slice_knobs_refuse(kw, small_tensor):
+    """Only ``precision="auto"`` is still outside the port (ROADMAP Queue A
+    item 10); the warm starts and objectives of items 8 and 9 run."""
     t = convert.sparse_tensor(small_tensor.coords, small_tensor.values,
                               small_tensor.shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.hooi(t, (3, 3, 3), n_invocations=1, device="cpu", **kw)
+    if "precision" in kw:
+        with pytest.raises(NotImplementedError, match="Queue A item 10"):
+            port.hooi(t, (3, 3, 3), n_invocations=1, device="cpu", **kw)
+        return
+    _, fits = port.hooi(t, (3, 3, 3), n_invocations=1, device="cpu", **kw)
+    assert len(fits) == 1 and np.isfinite(fits[0]) and 0 <= fits[0] <= 1
 
 
 @pytest.mark.parametrize("var,value", [
@@ -207,11 +213,16 @@ def test_out_of_slice_knobs_refuse(kw, small_tensor):
 ])
 def test_out_of_slice_env_knobs_refuse(monkeypatch, var, value,
                                        small_tensor):
-    monkeypatch.setenv(var, value)
+    """The ``REPRO_*`` variables of items 8 and 9 are read: setting one
+    gives the trajectory of passing its value."""
     t = convert.sparse_tensor(small_tensor.coords, small_tensor.values,
                               small_tensor.shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.hooi(t, (3, 3, 3), n_invocations=1, device="cpu")
+    knob = {"REPRO_WARM_START": "warm_start", "REPRO_OBJECTIVE": "objective"}
+    _, want = port.hooi(t, (3, 3, 3), n_invocations=1, device="cpu",
+                        **{knob[var]: value})
+    monkeypatch.setenv(var, value)
+    _, got = port.hooi(t, (3, 3, 3), n_invocations=1, device="cpu")
+    assert got == want
 
 
 def test_precision_env_knob_is_read(monkeypatch, small_tensor):

@@ -91,7 +91,11 @@ def test_plan_cache_returns_the_same_object(small_tensor):
 
 
 def test_plan_refuses_other_objectives(small_tensor):
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        port_plan.plan(_port(small_tensor), "lite", 4, objective="nn")
+    """Every objective of the reference plans (ROADMAP Queue A item 9) and
+    is stamped on its plan; unknown objectives and paths are refused."""
+    pl = port_plan.plan(_port(small_tensor), "lite", 4, objective="nn")
+    assert pl.objective == "nn"
+    with pytest.raises(ValueError, match="unknown objective"):
+        port_plan.plan(_port(small_tensor), "lite", 4, objective="ridge")
     with pytest.raises(ValueError):
         port_plan.plan(_port(small_tensor), "lite", 4, path="nowhere")
