@@ -42,10 +42,15 @@ Phases, each fatal on failure (nothing is caught):
    the same tensor over a Lite plan for P = 4 ranks stacked on the card
    (the plan is built once on the host, costed for ``path="auto"``), with
    ``lanczos_block=8, fused_zbuild=True, use_fused_oracle=True``, 3
-   invocations, on ``path="liteopt"`` (boundary) and ``path="baseline"``
-   (psum), each with every kernel's launch count read around it; then a
-   small tensor on the card against the CPU, a ``torch.profiler`` pass over
-   one invocation; at the distributed shapes (each mode's padded stacked
+   invocations, on the process-wide ``shared_executor(4)``, every step a
+   captured CUDA graph: on ``path="liteopt"`` (boundary) run 1 (3 captures,
+   the plan's arrays uploaded), ``stage_upload`` (already resident), run 2
+   with another seed (0 captures, 0 uploads, 9 step-cache hits); then
+   ``path="baseline"`` (psum), each with every kernel's launch count, set-up
+   seconds and peak memory read around it; then a small tensor on the
+   card against the CPU, a ``torch.profiler`` pass over one invocation
+   (with the host's graph and kernel launches); at the distributed shapes
+   (each mode's padded stacked
    partition) the gather form of ``kron_segsum_oracle`` checked bitwise
    against the row form and timed against its bound, the row form,
    ``_split_ab`` plus the row form, its plain version and ``kron_segsum``
@@ -67,11 +72,25 @@ Phases, each fatal on failure (nothing is caught):
     per sweep, and ``objective="nn"`` (factors exactly nonnegative, fits
     finite in [0, 1]);
 12. every objective × warm start on a small tensor on the card against the
-    port's CPU path, single process and P = 4 on both backends.
+    port's CPU path, single process and P = 4 on both backends;
+13. captured against eager: each mode step of the cached plan in three
+    configurations (``fused_block8`` on boundary and on psum, the sketch
+    warm start), the uncached step function once eagerly, then the
+    executor's cached step twice on the same inputs, F and S bitwise equal;
+14. ``HooiExecutor.profile_phases`` on the cached plan (f32 and bf16), the
+    TTM and the rest per mode, then ``fit_cost_model`` of the executor's
+    calibration samples and what ``precision="auto"`` picks under it (the
+    default model restored after);
+15. the stochastic-refine rung at full width: the snapshot with its last 1%
+    (613,798 elements) as the append, ``sample_fraction=0.25,
+    sample_seed=7, replay_nnz=1024``, three chained refines from phase 8's
+    factors (seconds, minibatch, fits and their gap to the full run), the
+    first again (0 captures, 0 uploads, bitwise equal), and a small tensor
+    on the card against the CPU.
 
-The distributed phases (7, 8, 9) run right after the kernel checks (3);
-when the run is late, the single-process paths are cut to one invocation
-(never their shape).
+The distributed phases (7, 8, 9, 13, 14, 15) run right after the kernel
+checks (3); when the run is late, the single-process paths are cut to one
+invocation (never their shape).
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit line, and as the last line ``{"ok": true, "device": {...}}``. Without
@@ -80,6 +99,7 @@ CUDA it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -899,11 +919,81 @@ def dist_kwargs() -> dict:
                 use_fused_oracle=True, seed=0, device=DEVICE)
 
 
-def phase_dist(t) -> dict:
-    """The distributed main path on both comm backends."""
+def launch_census(prof) -> dict:
+    """Host-side launches in a profile: graph replays, kernel launches and
+    copies, by the runtime calls that issue them."""
+    out = {"graph_launches": 0, "kernel_launches": 0, "copies": 0}
+    for e in prof.key_averages():
+        name = e.key
+        if name.startswith("cudaGraphLaunch"):
+            out["graph_launches"] += e.count
+        elif name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            out["kernel_launches"] += e.count
+        elif name.startswith("cudaMemcpy"):
+            out["copies"] += e.count
+    return out
+
+
+def dist_run(t, pl, path: str, label: str, **kw):
+    """One ``dist_hooi`` call on the shared executor, launch counts and peak
+    memory read around it; returns (dec, stats, record)."""
     import torch
-    from repro_torch.core.plan import plan
     from repro_torch.distributed.dist_hooi import dist_hooi
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    args = dict(dist_kwargs(), **kw)
+    dec, st = dist_hooi(t, CORE, DIST_P, scheme=pl, path=path,
+                        n_invocations=DIST_INVOCATIONS, **args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = st.sweep_s[1:] or st.sweep_s
+    log(f"dist_hooi {label} path={path} backends={st.comm_backends}: "
+        f"wall={wall:.3f} s setup_s={st.setup_s:.4f} "
+        f"sweeps={[round(x, 4) for x in st.sweep_s]} "
+        f"steady_s_per_sweep={float(np.mean(steady)):.4f} "
+        f"fits={st.fits} step_compilations={st.step_compilations} "
+        f"step_captures={st.step_captures} "
+        f"graph_replays={st.graph_replays} "
+        f"step_cache_hits={st.step_cache_hits} uploads={st.uploads} "
+        f"upload_cache_hit={st.upload_cache_hit} "
+        f"partition_build_s={st.partition_build_s:.3f} "
+        f"z_passes={st.z_passes} lanczos_block={st.lanczos_block} "
+        f"launches={launches} max_memory_allocated={peak / 2**30:.3f} GiB")
+    check_fits(st.fits, f"dist_hooi {label}")
+    if st.step_captures + st.graph_replays != len(CORE) * DIST_INVOCATIONS:
+        raise AssertionError(f"{label}: {st.step_captures} captures and "
+                             f"{st.graph_replays} replays, not one a step")
+    # a capture's eager warm-up launches every kernel of the step; a run
+    # that only replays launches none from the wrappers, and the profiled
+    # replay (phase_dist_profile) shows the recorded kernels running
+    for name, n in launches.items():
+        if n <= 0 and st.step_captures and (
+                name != "kron_segsum_oracle"
+                or kw.get("warm_start") != "sketch"):
+            raise AssertionError(f"{name} was not launched on the "
+                                 f"distributed path ({label})")
+    for n, F in enumerate(dec.factors):
+        if tuple(F.shape) != (t.shape[n], CORE[n]) or \
+                not bool(torch.isfinite(F).all()):
+            raise AssertionError(f"dist factor {n} bad: {tuple(F.shape)}")
+    return dec, st, {"stats": st, "launches": launches, "peak_bytes": peak,
+                     "wall_s": wall, "steady_s": float(np.mean(steady))}
+
+
+def phase_dist(t) -> dict:
+    """The distributed main path on both comm backends, through captured
+    steps on the shared executor. On boundary: run 1 captures its three
+    steps and uploads the plan; ``stage_upload`` then finds it resident;
+    run 2 (another seed) captures and uploads nothing and replays every
+    step. Then psum on the same resident plan."""
+    from repro_torch.core.plan import plan
+    from repro_torch.distributed.dist_hooi import shared_executor
 
     t0 = time.perf_counter()
     pl = plan(t, "lite", DIST_P, core_dims=CORE, path="auto")
@@ -914,41 +1004,263 @@ def phase_dist(t) -> dict:
         f"Lp={[mp.Lp for mp in pl.parts]} "
         f"S_pad={[mp.S_pad for mp in pl.parts]}")
     out = {"plan": pl, "plan_build_s": build_s, "runs": {}}
-    for path in ("liteopt", "baseline"):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    _, st1, out["runs"]["liteopt"] = dist_run(t, pl, "liteopt", "run 1")
+    if st1.step_compilations != len(CORE) or st1.step_captures != len(CORE):
+        raise AssertionError(f"run 1: {st1.step_compilations} compilations, "
+                             f"{st1.step_captures} captures, not {len(CORE)}")
+    staged = shared_executor(DIST_P).stage_upload(pl, t)
+    log(f"stage_upload on the resident plan: {staged}")
+    if not staged["already_resident"] or staged["uploads"]:
+        raise AssertionError(f"stage_upload moved arrays again: {staged}")
+    dec, st2, rec = dist_run(t, pl, "liteopt", "run 2 (captured)", seed=1)
+    out["runs"]["captured"] = rec
+    if (st2.step_compilations, st2.step_captures, st2.uploads) != (0, 0, 0) \
+            or not st2.upload_cache_hit \
+            or st2.step_cache_hits != len(CORE) * DIST_INVOCATIONS:
+        raise AssertionError(
+            f"run 2 on the cached plan: {st2.step_compilations} "
+            f"compilations, {st2.step_captures} captures, {st2.uploads} "
+            f"uploads, hit={st2.upload_cache_hit}, "
+            f"{st2.step_cache_hits} step cache hits")
+    log(f"replayed steps: steady sweep "
+        f"{rec['steady_s']:.4f} s (run 1 {out['runs']['liteopt']['steady_s']:.4f}"
+        f" s); set-up {st1.setup_s:.4f} s (run 1) -> {st2.setup_s:.4f} s "
+        f"(run 2)")
+    out["factors"] = dec.factors
+    out["fit"] = st2.fits[-1]
+    _, st3, out["runs"]["baseline"] = dist_run(t, pl, "baseline", "psum")
+    if st3.uploads or not st3.upload_cache_hit:
+        raise AssertionError("psum run uploaded the plan again")
+    return out
+
+
+def eager_and_cached_steps(ex, t, pl, path: str, warm_start: str) -> list:
+    """Per mode of ``pl`` at the distributed knobs: the step's arrays, an
+    uncached step built with ``make_mode_step_fn`` and a call of the
+    executor's cached step (captured on its first call), each
+    ``fn(arrs, factors, key) -> (F, S)``."""
+    from repro_torch.distributed.executor import _tally, step_spec
+    from repro_torch.engine.steps import make_mode_step_fn
+
+    specs = ex._mode_specs(pl, CORE, path, block_size=DIST_BLOCK,
+                           fused_zbuild=True, warm_start=warm_start)
+    up = ex._get_upload(pl, t, _tally())
+    out = []
+    for mp, sp in zip(pl.parts, specs):
+        kw = dict(use_fused=True, precision=sp.precision,
+                  block_size=sp.block_size, fused_zbuild=sp.fused_zbuild,
+                  warm_start=sp.warm_start)
+        skey, step = ex._get_step(mp, sp.backend, sp.K_n, niter=sp.niter,
+                                  objective=sp.objective, **kw)
+
+        def cached(arrs, factors, key, skey=skey, step=step):
+            return ex._call_step(skey, step, up, arrs, factors, key,
+                                 _tally())
+
+        out.append((up.arrs[mp.mode],
+                    make_mode_step_fn(step_spec(mp, **kw), sp.backend,
+                                      sp.K_n, sp.niter), cached))
+    return out
+
+
+def phase_capture_bitwise(t, pl) -> None:
+    """Each mode step of the cached plan in three configurations
+    (``fused_block8`` on boundary and on psum, and the sketch warm start):
+    the uncached step once eagerly, then the executor's cached step twice
+    (captured or replayed) on the same inputs; F and S bitwise equal."""
+    import torch
+    from repro_torch.core.hooi import random_factors
+    from repro_torch.distributed.dist_hooi import shared_executor
+    from repro_torch.random import make_key
+
+    ex = shared_executor(DIST_P)
+    factors = random_factors(t.shape, CORE, make_key(21), DEVICE)
+    for label, path, warm_start in (
+            ("fused_block8 boundary", "liteopt", "none"),
+            ("fused_block8 psum", "baseline", "none"),
+            ("sketch", "auto", "sketch")):
+        steps = eager_and_cached_steps(ex, t, pl, path, warm_start)
+        for n, (arrs, eager, cached) in enumerate(steps):
+            key = make_key(22).fold_in(1000 + n)
+            want = eager(arrs, factors, key)
+            for call in range(2):
+                got = cached(arrs, factors, key)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"captured step {label} mode {n} "
+                                         f"call {call} differs from eager")
+        log(f"captured == eager bitwise, {label}: 3 modes x (eager, 2 "
+            f"cached calls)")
+    # (backend or zbuild, mode, warm start, precision) -> segments
+    segs = sorted({(k[0][0], k[0][3], k[0][14], k[0][10], len(g.segments))
+                   for k, g in ex._uploads[pl].graphs.items()})
+    log(f"captured steps on the plan (step, mode, warm start, precision, "
+        f"segments): {segs}")
+
+
+def phase_reuse_profile_and_calibration(t, pl) -> dict:
+    """``profile_phases`` on the cached plan (f32, then bf16 for the bf16
+    TTM rate), ``fit_cost_model`` of the executor's samples, and what
+    ``precision="auto"`` picks under the fitted model (restored after)."""
+    from repro_torch.core.calibrate import fit_cost_model, set_cost_model
+    from repro_torch.distributed.dist_hooi import shared_executor
+    from repro_torch.engine.zbuild import resolve_precision
+
+    ex = shared_executor(DIST_P)
+    kw = dict(path="liteopt", lanczos_block=DIST_BLOCK, fused_zbuild=True,
+              use_fused_oracle=True, repeats=3)
+    out = {}
+    for prec in ("f32", "bf16"):
+        prof = ex.profile_phases(t, CORE, pl, precision=prec, **kw)
+        per = {n: {k: round(v, 6) for k, v in m.items()}
+               for n, m in prof["per_mode"].items()}
+        log(f"profile_phases {prec}: ttm_s={prof['ttm_s']:.6f} "
+            f"svd_s={prof['svd_s']:.6f} full_s={prof['full_s']:.6f} "
+            f"per mode {per}")
+        out[prec] = prof
+    samples = ex.calibration_samples()
+    cm = fit_cost_model(samples)
+    try:
+        set_cost_model(cm)
+        picked = resolve_precision("auto")
+    finally:
+        set_cost_model(None)
+    log(f"fit_cost_model over {len(samples)} samples "
+        f"({sum(1 for s in samples if s['warm'])} warm): source={cm.source} "
+        f"flop_rate={cm.flop_rate:.6e} ttm_flop_rate={cm.ttm_flop_rate} "
+        f"svd_flop_rate={cm.svd_flop_rate} "
+        f"ttm_flop_rate_bf16={cm.ttm_flop_rate_bf16} "
+        f"net_bandwidth={cm.net_bandwidth:.6e} "
+        f"psum_bandwidth={cm.psum_bandwidth} "
+        f"boundary_bandwidth={cm.boundary_bandwidth}; "
+        f"precision='auto' picks {picked}")
+    out["model"] = cm
+    out["auto"] = picked
+    return out
+
+
+APPEND_NNZ = 613_798  # the last 1% of the nell-2-sized tensor's elements
+
+
+def phase_stochastic(t, pl, factors, full_fit: float) -> dict:
+    """The stochastic-refine rung at full width: the snapshot with its
+    last 1% as the append, three chained refines (``step_index`` 0, 1, 2)
+    from the factors of the distributed run, then refine 0 again (nothing
+    captured or moved, the same bits), and a small tensor on the card
+    against the CPU."""
+    import torch
+    from repro_torch.core.stochastic import next_pow2
+    from repro_torch.data.tensors import synth_tensor
+    from repro_torch.distributed.dist_hooi import shared_executor
+    from repro_torch.distributed.executor import HooiExecutor
+
+    ex = shared_executor(DIST_P)
+    kw = dict(covered_nnz=t.nnz - APPEND_NNZ, sample_fraction=0.25,
+              sample_seed=7, replay_nnz=1024, seed=0)
+    out = {"refines": []}
+    carried = factors
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(3):
         reset_launch_counts()
         t0 = time.perf_counter()
-        dec, st = dist_hooi(t, CORE, DIST_P, scheme=pl, path=path,
-                            n_invocations=DIST_INVOCATIONS, **dist_kwargs())
+        dec, st = ex.run_stochastic(t, CORE, pl, init_factors=carried,
+                                    step_index=k, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        steady = st.sweep_s[1:] or st.sweep_s
-        log(f"dist_hooi path={path} backends={st.comm_backends}: "
-            f"wall={wall:.3f} s sweeps={[round(x, 4) for x in st.sweep_s]} "
-            f"steady_s_per_sweep={float(np.mean(steady)):.4f} "
-            f"fits={st.fits} partition_build_s={st.partition_build_s:.3f} "
-            f"(plan built above in {build_s:.1f} s) z_passes={st.z_passes} "
-            f"lanczos_block={st.lanczos_block} launches={launches} "
-            f"max_memory_allocated={peak / 2**30:.3f} GiB")
-        check_fits(st.fits, f"dist_hooi {path}")
-        for name, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"{name} was not launched on the "
-                                     f"distributed path ({path})")
-        for n, F in enumerate(dec.factors):
-            if tuple(F.shape) != (t.shape[n], CORE[n]) or \
-                    not bool(torch.isfinite(F).all()):
-                raise AssertionError(f"dist factor {n} bad: "
-                                     f"{tuple(F.shape)}")
-        out["runs"][path] = {"stats": st, "launches": launches,
-                             "peak_bytes": peak, "wall_s": wall,
-                             "steady_s": float(np.mean(steady))}
-        out["factors"] = dec.factors
-        del dec
+        padded = next_pow2(st.sample_nnz + st.replay_nnz)
+        log(f"refine step_index={k}: {wall:.4f} s (setup_s "
+            f"{st.setup_s:.4f}, sweep {st.sweep_s}) sample_nnz="
+            f"{st.sample_nnz} replay_nnz={st.replay_nnz} padded minibatch "
+            f"{padded} eta={st.step_size} fits={st.fits} delta from the "
+            f"full run {st.fits[-1] - full_fit:+.3e} "
+            f"step_compilations={st.step_compilations} "
+            f"step_captures={st.step_captures} uploads={st.uploads} "
+            f"launches={launches}")
+        check_fits(st.fits, f"refine {k}")
+        if launches["kron_segsum"] <= 0:
+            raise AssertionError("kron_segsum was not launched on the "
+                                 "stochastic rung")
+        out["refines"].append({"stats": st, "wall_s": wall,
+                               "launches": launches, "padded": padded})
+        if k == 0:
+            first = (dec, st)
+        carried = dec.factors
+    peak = torch.cuda.max_memory_allocated()
+    dec0, st0 = first
+    dec, st = ex.run_stochastic(t, CORE, pl, init_factors=factors,
+                                step_index=0, **kw)
+    same = st.fits == st0.fits and all(
+        torch.equal(a, b) for a, b in zip(dec.factors, dec0.factors))
+    log(f"refine 0 again: step_compilations={st.step_compilations} "
+        f"step_captures={st.step_captures} uploads={st.uploads} fits "
+        f"{st.fits} bitwise equal={same}; peak over the refines "
+        f"{peak / 2**30:.3f} GiB")
+    if (st.step_compilations, st.step_captures, st.uploads) != (0, 0, 0) \
+            or not same:
+        raise AssertionError("the refine rerun is not 0/0 and bitwise")
+    out["peak_bytes"] = peak
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, st = ex.run_stochastic(t, CORE, pl, init_factors=factors,
+                                  step_index=0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["replayed"] = {"launches": launch_counts(),
+                       "executions": kernel_executions(prof)}
+    log(f"cached refine: graph_replays={st.graph_replays}; wrapper "
+        f"launches {out['replayed']['launches']}; kernel executions on the "
+        f"card (profiler) {out['replayed']['executions']}")
+    if st.step_captures or not st.graph_replays or \
+            out["replayed"]["executions"]["kron_segsum"] <= \
+            out["replayed"]["launches"]["kron_segsum"]:
+        raise AssertionError("the cached refine did not run kron_segsum "
+                             "from its replayed steps")
+    rows = profile_rows(prof)
+    busy = sum(r[0] for r in rows)
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)[:8]
+    log(f"profile of a cached refine: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%); host launches "
+        f"{launch_census(prof)}; device: "
+        + "; ".join(f"{ms:.3f} ms {c}x {k[:50]}" for ms, c, k in rows[:6])
+        + "; host self time: "
+        + "; ".join(f"{ms:.1f} ms {c}x {k[:40]}" for ms, c, k in host))
+    from repro_torch.core.stochastic import sample_batch
+
+    t0 = time.perf_counter()
+    sample_batch(t.coords, t.values, kw["covered_nnz"], kw["sample_fraction"],
+                 kw["sample_seed"], replay_nnz=kw["replay_nnz"])
+    t1 = time.perf_counter()
+    float(np.sum(t.values ** 2))
+    t2 = time.perf_counter()
+    log(f"host work of a refine: sample_batch {t1 - t0:.4f} s; ‖T‖² over "
+        f"the snapshot's values {t2 - t1:.4f} s (fit_score computes it for "
+        f"every fit: twice a refine)")
+    small = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9),
+                         seed=3)
+    from repro_torch.core.hooi import random_factors
+    from repro_torch.core.plan import plan
+    from repro_torch.random import make_key
+
+    spl = plan(small, "lite", DIST_P, core_dims=(5, 5, 5))
+    init = random_factors(small.shape, (5, 5, 5), make_key(4), "cpu")
+    skw = dict(init_factors=init, covered_nnz=small.nnz - small.nnz // 100,
+               sample_fraction=0.25, sample_seed=7, replay_nnz=256,
+               n_invocations=2, seed=1)
+    _, gpu = ex.run_stochastic(small, (5, 5, 5), spl, **skw)
+    _, cpu = HooiExecutor(DIST_P, "cpu").run_stochastic(small, (5, 5, 5),
+                                                        spl, **skw)
+    diff = float(np.max(np.abs(np.subtract(gpu.fits, cpu.fits))))
+    log(f"small refine card vs CPU: fits {gpu.fits} vs {cpu.fits}, max "
+        f"diff {diff:.2e} (tolerance 1e-4)")
+    if not diff <= 1e-4:
+        raise AssertionError(f"refine card and CPU fits differ by {diff}")
     return out
 
 
@@ -1037,14 +1349,33 @@ def profile_rows(prof) -> list:
     return rows
 
 
-def phase_dist_profile(t, pl) -> None:
+def kernel_executions(prof) -> dict:
+    """Each ported kernel's executions in a profile's device activity
+    (a graph's recorded launches included): ``oracle_kernel`` per
+    ``oracle_pair`` call, ``zx_kernel`` per ``kron_segsum_oracle`` call,
+    and one ``chunk_kernel`` per call of either ``kron_segsum`` form."""
+    seen = {"chunk_kernel": 0, "zx_kernel": 0, "oracle_kernel": 0}
+    for _, count, key in profile_rows(prof):
+        for name in seen:
+            if name + "<" in key or name + "(" in key:
+                seen[name] += count
+    return {"kron_segsum": seen["chunk_kernel"] - seen["zx_kernel"],
+            "kron_segsum_oracle": seen["zx_kernel"],
+            "oracle_pair": seen["oracle_kernel"]}
+
+
+def phase_dist_profile(t, pl) -> dict:
     """Device time by kernel over one invocation of the distributed path
-    (boundary backend; set-up, one sweep, core and fit)."""
+    (boundary backend; set-up, one sweep, core and fit) on the cached
+    plan: every step replays its graphs, so the wrappers launch none of
+    the step's kernels, and the profiler's device activity shows them
+    running. Returns both counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.distributed.dist_hooi import dist_hooi
 
     torch.cuda.synchronize()
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1052,13 +1383,34 @@ def phase_dist_profile(t, pl) -> None:
                           n_invocations=1, **dist_kwargs())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launches = launch_counts()
+    ran = kernel_executions(prof)
+    log(f"replayed invocation: step_captures={st.step_captures} "
+        f"graph_replays={st.graph_replays}; wrapper launches {launches}; "
+        f"kernel executions on the card (profiler) {ran}")
+    if st.step_captures or st.graph_replays != len(CORE):
+        raise AssertionError(f"the profiled invocation captured "
+                             f"{st.step_captures} steps and replayed "
+                             f"{st.graph_replays}, not {len(CORE)}")
+    for name in ("kron_segsum_oracle", "oracle_pair"):
+        if ran[name] <= launches[name]:
+            raise AssertionError(f"{name}: {ran[name]} executions on the "
+                                 f"card against {launches[name]} wrapper "
+                                 f"launches: the replayed steps did not "
+                                 f"run it")
     rows = profile_rows(prof)
     busy = sum(r[0] for r in rows)
-    log(f"profile of dist_hooi(liteopt, n_invocations=1): wall "
-        f"{wall * 1e3:.1f} ms (sweep {st.sweep_s[0] * 1e3:.1f} ms), device "
-        f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%)")
+    log(f"profile of dist_hooi(liteopt, n_invocations=1) on the cached "
+        f"plan: wall {wall * 1e3:.1f} ms (sweep {st.sweep_s[0] * 1e3:.1f} "
+        f"ms), device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%)"
+        f"; host launches (one sweep, core and fit) {launch_census(prof)}")
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)[:10]
+    log("  host self time: " + "; ".join(f"{ms:.1f} ms {c}x {k[:40]}"
+                                          for ms, c, k in host))
     for ms, count, key in rows[:16]:
         log(f"  {ms:9.3f} ms {count:5d}x  {key[:90]}")
+    return {"launches": launches, "executions": ran}
 
 
 def fused_bound_ms(E: int, Ka: int, Kb: int, num_rows: int, nonempty: int,
@@ -1271,7 +1623,9 @@ def main() -> int:
     from repro_torch.data.tensors import synth_tensor
     from repro_torch.convert import device_coords
     from repro_torch.core import hooi
+    from repro_torch.core.plan import plan_cache_clear
     from repro_torch.device import full_precision_matmul
+    from repro_torch.distributed import executor
     from repro_torch.kernels import build
     from repro_torch.random import make_key
 
@@ -1307,15 +1661,28 @@ def main() -> int:
 
     dist = phase_dist(t)
     phase_dist_small()
-    phase_dist_profile(t, dist["plan"])
+    dist_replayed = phase_dist_profile(t, dist["plan"])
     dist_timing = phase_dist_timings(dist["plan"], dist["factors"])
     errs["kron_segsum_oracle"] = max(errs["kron_segsum_oracle"],
                                      dist_timing["err"])
     errs["oracle_pair"] = max(errs["oracle_pair"],
                               dist_timing["stacked_err"])
-    del dist["factors"]
     torch.cuda.empty_cache()
     dist_sketch = phase_dist_sketch(t)
+    phase_capture_bitwise(t, dist["plan"])
+    calibration = phase_reuse_profile_and_calibration(t, dist["plan"])
+    stoch = phase_stochastic(t, dist["plan"], dist["factors"], dist["fit"])
+    # the single-process phases run with nothing of the distributed ones
+    # resident: the plan (cached here and in the plan cache), its uploads
+    # and graphs, and the shared executor's refine snapshots
+    del dist["factors"], dist["plan"]
+    plan_cache_clear()
+    executor._SHARED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"resident before the single-process phases: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
 
     main = phase_main_path(t)
     phase_small_checks()
@@ -1336,7 +1703,10 @@ def main() -> int:
         f"{objectives['nn']['steady_s']:.4f}; dist liteopt "
         f"{run['steady_s']:.4f}, baseline "
         f"{dist['runs']['baseline']['steady_s']:.4f}, sketch "
-        f"{dist_sketch['steady_s']:.4f}")
+        f"{dist_sketch['steady_s']:.4f}, liteopt rerun on the cached plan "
+        f"{dist['runs']['captured']['steady_s']:.4f}; refines "
+        + ", ".join(f"{r['wall_s']:.4f}" for r in stoch["refines"])
+        + f"; precision='auto' after calibration: {calibration['auto']}")
     dist_sweeps = len(run["stats"].fits)
     by_path = {
         name: {"hooi": main["launches"][name],
@@ -1345,10 +1715,15 @@ def main() -> int:
                "hooi_sketch": sketch["sketch"]["launches"][name],
                "hooi_auto": sketch["auto"]["launches"][name],
                "dist_sketch": dist_sketch["launches"][name],
+               "dist_captured": dist["runs"]["captured"]["launches"][name],
+               "dist_replayed_profiled": dist_replayed["launches"][name],
+               "stochastic_refine": stoch["refines"][1]["launches"][name],
                "hooi_completion": objectives["completion"]["launches"][name],
                "hooi_nn": objectives["nn"]["launches"][name]}
         for name in ("kron_segsum", "kron_segsum_oracle", "oracle_pair")}
-    log(f"launches by path: {by_path}; per sweep on dist liteopt: "
+    log(f"launches by path: {by_path}; executions on the card in replayed "
+        f"runs (profiler): dist {dist_replayed['executions']}, refine "
+        f"{stoch['replayed']['executions']}; per sweep on dist liteopt: "
         + ", ".join(f"{k} {v / dist_sweeps:g}"
                     for k, v in run["launches"].items()))
 
@@ -1373,6 +1748,13 @@ def main() -> int:
             "replaces": replaces, "launches": run["launches"][name],
             "launches_per_sweep": run["launches"][name] / dist_sweeps,
             "launches_by_path": by_path[name],
+            # executions on the card, read from the profiler, in a replayed
+            # invocation and a cached refine (the wrappers' counts there
+            # are in launches_by_path)
+            "executions_replayed": {
+                "dist_replayed_profiled": dist_replayed["executions"][name],
+                "stochastic_refine_cached":
+                    stoch["replayed"]["executions"][name]},
             "max_abs_err": errs[name], "ms": mean(name, "ms"),
             "plain_ms": mean(name, "plain"), "bound_ms": mean(name, "bound"),
             "bound_by": bound_by(name),

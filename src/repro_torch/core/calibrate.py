@@ -1,16 +1,23 @@
-"""The cost model behind the plan's analytic costs.
+"""The cost model behind the plan's analytic costs, and its fit.
 
 The port's own copy of the reference's ``core/calibrate.py``: ``CostModel``
 and the process-wide current model, which ``repro_torch.core.plan`` scores
-candidate schemes with and ``engine.comm`` compares backends with. The
-least-squares fit from measured sweeps (``fit_cost_model``) and the
-executor's calibration samples are ROADMAP Queue A item 10.
+candidate schemes with and ``engine.comm`` compares backends with, and the
+least-squares fit of its rates from measured sweeps: ``HooiExecutor``
+records one sample per sweep (``calibration_samples()``, plus the pure-TTM
+probe of ``profile_phases``), ``fit_cost_model`` turns them into a
+``CostModel`` and ``set_cost_model`` installs it (the plan cache keys on the
+model version). The fitter is numpy and the same as the reference's, so the
+same samples give the same model.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+from typing import Mapping, Sequence
+
+import numpy as np
 
 __all__ = [
     "CostModel",
@@ -19,6 +26,7 @@ __all__ = [
     "current_cost_model_state",
     "set_cost_model",
     "cost_model_version",
+    "fit_cost_model",
 ]
 
 
@@ -147,3 +155,196 @@ def set_cost_model(model: CostModel | None) -> CostModel:
 def cost_model_version() -> int:
     with _LOCK:
         return _VERSION
+
+
+# ------------------------------------------------------------------ fitting
+def _fit_bf16_ttm_rate(use: Sequence[Mapping], cm: CostModel) -> CostModel:
+    """Attach the bf16 TTM rate when bf16-labelled pure-TTM samples exist.
+
+    ``HooiExecutor.profile_phases(precision="bf16")`` appends phase="ttm"
+    probes (``svd_flops=0, comm_bytes=0``) labelled with the precision that
+    ran; the bf16 rate is the robust one-parameter estimate
+    ``sum(flops) / sum(seconds)`` over those, attached only when physical.
+    The ``"auto"`` precision policy (``engine.zbuild.resolve_precision``)
+    compares it against the fitted f32 TTM rate.
+    """
+    flop_sum = sec_sum = 0.0
+    for s in use:
+        if s.get("precision") != "bf16" or s.get("phase") != "ttm":
+            continue
+        f = float(s.get("ttm_flops", 0.0))
+        sec = float(s.get("seconds", 0.0))
+        if f > 0 and sec > 0:
+            flop_sum += f
+            sec_sum += sec
+    if flop_sum <= 0 or sec_sum <= 0:
+        return cm
+    rate = flop_sum / sec_sum
+    if not np.isfinite(rate) or rate <= 0:
+        return cm
+    return dataclasses.replace(cm, ttm_flop_rate_bf16=rate,
+                               source=cm.source + "+bf16")
+
+
+def _fit_backend_bandwidths(use: Sequence[Mapping],
+                            cm: CostModel) -> CostModel:
+    """Attach per-backend effective bandwidths when samples are labelled.
+
+    Executor samples carry the comm backend they ran (``"psum"`` /
+    ``"boundary"``; per-mode mixes are labelled ``"mixed"`` and skipped).
+    For each backend with positive comm residual after the fitted compute
+    phases, the effective bandwidth is total bytes / total residual seconds
+    — a deliberately robust one-parameter estimate, only attached when it
+    is physical (positive, finite)."""
+    updates: dict[str, float] = {}
+    for backend, field in (("psum", "psum_bandwidth"),
+                           ("boundary", "boundary_bandwidth")):
+        byte_sum = resid_sum = 0.0
+        for s in use:
+            if s.get("comm_backend") != backend:
+                continue
+            b = float(s.get("comm_bytes", 0.0))
+            if b <= 0:
+                continue
+            tt, sv = cm.phase_seconds(
+                float(s.get("ttm_flops", s["critical_path_flops"])),
+                float(s.get("svd_flops", 0.0)))
+            resid = float(s["seconds"]) - (tt + sv)
+            if resid > 0:
+                byte_sum += b
+                resid_sum += resid
+        if byte_sum > 0 and resid_sum > 0:
+            bw = byte_sum / resid_sum
+            if np.isfinite(bw):
+                updates[field] = bw
+    if not updates:
+        return cm
+    return dataclasses.replace(cm, source=cm.source + "+backends", **updates)
+
+
+def _fit_phases(use: Sequence[Mapping], base: CostModel) -> CostModel | None:
+    """Per-phase fit: seconds ~= ttm/r_ttm + svd/r_svd + bytes/bw.
+
+    Needs the (ttm_flops, svd_flops) columns to be independent — e.g. the
+    executor's ``profile_phases`` pure-TTM probe next to full sweeps, or
+    sweeps over plans with different E_max/R_max ratios. Returns None when
+    the phase columns are degenerate or the fit is unphysical, so the caller
+    falls back to the single-rate fit.
+    """
+    A2 = np.array([[float(s["ttm_flops"]), float(s["svd_flops"])]
+                   for s in use])
+    y = np.array([float(s["seconds"]) for s in use])
+    scale2 = np.maximum(A2.max(axis=0), 1e-30)
+    if (A2.max(axis=0) <= 0).any() \
+            or np.linalg.matrix_rank(A2 / scale2) < 2:
+        return None
+    bts = np.array([float(s.get("comm_bytes", 0.0)) for s in use])
+    # comm column: joint-fit only when it adds rank; otherwise pin to base
+    A3 = np.column_stack([A2, bts])
+    scale3 = np.maximum(A3.max(axis=0), 1e-30)
+    if bts.max() > 0 and np.linalg.matrix_rank(A3 / scale3) == 3:
+        x, *_ = np.linalg.lstsq(A3 / scale3, y, rcond=None)
+        x = x / scale3
+        if (x > 0).all():
+            return CostModel(
+                flop_rate=2.0 / (x[0] + x[1]),
+                net_bandwidth=1.0 / x[2],
+                ttm_flop_rate=1.0 / x[0],
+                svd_flop_rate=1.0 / x[1],
+                source=f"fitted-phases:{len(use)}",
+            )
+    resid = y - bts / base.net_bandwidth
+    if (resid <= 0).any():  # comm effectively free (shared-memory mesh)
+        resid = y
+    x, *_ = np.linalg.lstsq(A2 / scale2, resid, rcond=None)
+    x = x / scale2
+    if (x <= 0).any():
+        return None
+    return CostModel(
+        flop_rate=2.0 / (x[0] + x[1]),
+        net_bandwidth=base.net_bandwidth,
+        ttm_flop_rate=1.0 / x[0],
+        svd_flop_rate=1.0 / x[1],
+        source=f"fitted-phases:{len(use)}",
+    )
+
+
+def fit_cost_model(
+    samples: Sequence[Mapping],
+    base: CostModel | None = None,
+    warm_only: bool = True,
+) -> CostModel:
+    """Least-squares fit of (flop_rate, net_bandwidth) from measured sweeps.
+
+    Each sample is a mapping with ``critical_path_flops``, ``comm_bytes`` and
+    measured ``seconds`` for one HOOI sweep (``HooiExecutor`` records exactly
+    these). We solve ``seconds ~= flops * x0 + bytes * x1`` for nonnegative
+    ``x0 = 1/flop_rate``, ``x1 = 1/net_bandwidth``.
+
+    When every sample additionally carries per-phase ``ttm_flops`` /
+    ``svd_flops`` columns (the executor records them; its
+    ``profile_phases`` probe contributes a pure-TTM sample that makes the
+    design full-rank), the TTM and Lanczos/SVD rates are fitted separately
+    and returned as ``ttm_flop_rate`` / ``svd_flop_rate`` — ``auto``
+    selection then re-scores candidates under kernel-speed rates. A
+    degenerate or unphysical per-phase design falls back to the single-rate
+    fit below.
+
+    ``warm_only`` drops samples flagged ``warm=False`` (sweeps that paid jit
+    compilation — those times measure XLA, not the machine's rates). When the
+    design matrix is degenerate (one plan measured, or comm negligible on a
+    shared-memory mesh), the comm term is pinned to ``base`` and only the
+    flop rate is fitted — that is the dominant term for the paper's
+    computation-bound workloads anyway.
+    """
+    base = base or DEFAULT_COST_MODEL
+    all_use = [s for s in samples if not warm_only or s.get("warm", True)]
+    if not all_use:
+        raise ValueError("no usable samples (all cold or empty)")
+    # bf16-labelled samples feed only the dedicated bf16 TTM rate — mixing
+    # them into the main design would bias the f32 phase rates
+    use = [s for s in all_use if s.get("precision", "f32") != "bf16"] \
+        or all_use
+    if all("ttm_flops" in s and "svd_flops" in s for s in use):
+        phased = _fit_phases(use, base)
+        if phased is not None:
+            return _fit_bf16_ttm_rate(
+                all_use, _fit_backend_bandwidths(use, phased))
+    A = np.array(
+        [[float(s["critical_path_flops"]), float(s["comm_bytes"])] for s in use]
+    )
+    y = np.array([float(s["seconds"]) for s in use])
+    if (y <= 0).any() or (A[:, 0] <= 0).any():
+        raise ValueError("samples need positive seconds and flops")
+
+    def _flops_only() -> CostModel:
+        # pin comm at base rate, fit the flop term on the residual; if the
+        # pinned comm model over-predicts any sample (comm is effectively
+        # free, e.g. a shared-memory mesh), attribute the whole measured
+        # time to flops rather than inverting a clamped-to-zero residual
+        # into an absurdly fast machine
+        resid = y - A[:, 1] / base.net_bandwidth
+        if (resid <= 0).any():
+            resid = y
+        x0 = float(resid @ A[:, 0]) / float(A[:, 0] @ A[:, 0])
+        return CostModel(
+            flop_rate=1.0 / max(x0, 1e-18),
+            net_bandwidth=base.net_bandwidth,
+            source=f"fitted:{len(use)}",
+        )
+
+    # column scaling for conditioning; rank check decides 1- vs 2-term fit
+    scale = A.max(axis=0)
+    if scale[1] <= 0 or np.linalg.matrix_rank(A / np.maximum(scale, 1e-30)) < 2:
+        return _fit_bf16_ttm_rate(
+            all_use, _fit_backend_bandwidths(use, _flops_only()))
+    x, *_ = np.linalg.lstsq(A / scale, y, rcond=None)
+    x = x / scale
+    if x[0] <= 0 or x[1] <= 0:  # unphysical joint fit -> robust 1-term fit
+        return _fit_bf16_ttm_rate(
+            all_use, _fit_backend_bandwidths(use, _flops_only()))
+    return _fit_bf16_ttm_rate(all_use, _fit_backend_bandwidths(use, CostModel(
+        flop_rate=1.0 / x[0],
+        net_bandwidth=1.0 / x[1],
+        source=f"fitted:{len(use)}",
+    )))

@@ -21,7 +21,9 @@ the card), ``draw`` (the random-draw seam, ``repro_torch.random``),
 ``lanczos_block`` (block Lanczos), ``fused_zbuild``, ``warm_start`` (the
 sketch warm start, ``core.sketch``) and ``objective`` (tucker, completion
 and nonnegative, ``engine.objective``) are the reference's.
-``precision="auto"`` raises ``NotImplementedError`` naming its ROADMAP item.
+``precision="auto"`` picks bf16 when the current fitted ``CostModel``
+measured a bf16 TTM rate above 1.05 times the f32 one, as the reference
+does (``engine.zbuild.resolve_precision``).
 """
 
 from __future__ import annotations

@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.graphs import host_call, upload
 from repro_torch.random import Key, make_key
 
 __all__ = ["LanczosResult", "lanczos_bidiag", "svd_via_lanczos",
@@ -113,10 +114,14 @@ def block_start_panel(key: Key, ncols: int, block_size: int,
     the block driver agree on it without communicating. The QR runs on the
     host (LAPACK), so card and CPU runs start from the same panel; the panel
     comes back row-major, the layout the fused Z-build kernel reads."""
-    dev = resolve_device(device)
-    g = key.fold_in(3).normal((ncols, block_size), "cpu")
-    q, _ = torch.linalg.qr(g)
-    return q.contiguous().to(dev)
+    key3 = key.fold_in(3)
+
+    def panel() -> torch.Tensor:
+        q, _ = torch.linalg.qr(key3.normal((ncols, block_size), "cpu"))
+        return q.contiguous()
+
+    # depends on the draw only: a captured step makes it before its replay
+    return upload(panel, resolve_device(device))
 
 
 def _reorth(u: torch.Tensor, basis: torch.Tensor, space: _Space
@@ -309,6 +314,11 @@ def _complete_columns(left: torch.Tensor, m: int, key: Key,
     return basis
 
 
+def _host_svd(B: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    P, S, _ = torch.linalg.svd(B, full_matrices=False)
+    return P, S
+
+
 def svd_from_bidiag(
     U: torch.Tensor,
     B: torch.Tensor,
@@ -326,8 +336,7 @@ def svd_from_bidiag(
     routine keeps card and CPU runs on the same trajectory, and the matrix
     is at most a few dozen wide.
     """
-    P, S, _ = torch.linalg.svd(B.cpu(), full_matrices=False)
-    P, S = P.to(U.device), S.to(U.device)
+    P, S = host_call(_host_svd, B)
     niter = int(B.shape[0])
     kk = min(k, niter)
     left = U @ P[:, :kk]

@@ -31,6 +31,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.graphs import host_call
 from repro_torch.random import Key
 
 __all__ = ["DEFAULT_POWER_ITERS", "SKETCH_KINDS", "test_matrix",
@@ -48,8 +49,12 @@ SKETCH_KINDS = ("gauss", "srht")
 def _host_qr(a: torch.Tensor) -> torch.Tensor:
     """Reduced Q of ``a``, factored on the host and returned row-major on
     ``a``'s device (the layout the oracle kernels read)."""
-    q, _ = torch.linalg.qr(a.cpu())
-    return q.contiguous().to(a.device)
+    return host_call(_qr_rowmajor, a)
+
+
+def _qr_rowmajor(a: torch.Tensor) -> torch.Tensor:
+    q, _ = torch.linalg.qr(a)
+    return q.contiguous()
 
 
 def _fwht(x: torch.Tensor) -> torch.Tensor:
@@ -122,12 +127,15 @@ def seeded_start_panel(seed: torch.Tensor, key: Key, ncols: int,
     """
     s = int(block_size)
     w = int(seed.shape[1])
-    host = seed.cpu()
-    if w < s:
-        extra = key.fold_in(41).normal((ncols, s - w), "cpu")
-        host = torch.cat([host, extra.to(host.dtype)], dim=1)
-    q, _ = torch.linalg.qr(host[:, :s])
-    return q.contiguous().to(seed.device)
+    key41 = key.fold_in(41)
+
+    def panel(host: torch.Tensor) -> torch.Tensor:
+        if w < s:
+            extra = key41.normal((ncols, s - w), "cpu")
+            host = torch.cat([host, extra.to(host.dtype)], dim=1)
+        return _qr_rowmajor(host[:, :s])
+
+    return host_call(panel, seed)
 
 
 def power_refine(matvec: Callable, rmatvec: Callable, panel: torch.Tensor,

@@ -2,9 +2,11 @@
 
 The port of ``src/repro/distributed/dist_hooi.py``. The P ranks are stacked
 along a leading dimension on one device (default: the card); see
-``repro_torch.distributed.executor``. The reference's ``mesh`` and
-``use_kernel`` arguments are absent: there is no mesh, and the device
-decides the Z-build (kernels on the card, plain PyTorch on the CPU).
+``repro_torch.distributed.executor``. Calls run on the process-wide
+``shared_executor(P, device)``, so a repeated call on a cached plan
+compiles and uploads nothing. The reference's ``mesh`` and ``use_kernel``
+arguments are absent: there is no mesh, and the device decides the Z-build
+(kernels on the card, plain PyTorch on the CPU).
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ from repro_torch.core.hooi import Decomposition
 from repro_torch.core.plan import PartitionPlan
 from repro_torch.random import Draw
 
-from .executor import DistHooiStats, HooiExecutor, comm_model  # noqa: F401
+from .executor import (DistHooiStats, HooiExecutor,  # noqa: F401
+                       comm_model, shared_executor)
 
-__all__ = ["dist_hooi", "DistHooiStats", "HooiExecutor", "comm_model"]
+__all__ = ["dist_hooi", "DistHooiStats", "HooiExecutor", "comm_model",
+           "shared_executor"]
 
 
 def dist_hooi(
@@ -54,12 +58,13 @@ def dist_hooi(
     schemes. ``path`` selects the comm backend family (``"baseline"`` ->
     psum, ``"liteopt"`` -> boundary, ``"auto"`` -> per mode; P=1 always
     runs ``local``, the same engine instantiation as ``hooi``). The other
-    knobs are ``HooiExecutor.run``'s. ``executor`` overrides the one this
-    call would make on ``device``; ``init`` passes explicit initial
-    factors, ``draw`` the random-draw seam, ``on_sweep(it, seconds, fit)``
-    observes every sweep.
+    knobs are ``HooiExecutor.run``'s. ``executor`` overrides
+    ``shared_executor(P_ranks, device)``; ``init`` passes initial factors
+    (coerced to ``core_dims``), ``draw`` the random-draw seam,
+    ``on_sweep(it, seconds, fit)`` observes every sweep.
     """
-    ex = executor if executor is not None else HooiExecutor(P_ranks, device)
+    ex = executor if executor is not None \
+        else shared_executor(P_ranks, device)
     if ex.P != P_ranks:
         raise ValueError(f"executor has P={ex.P}, asked for {P_ranks}")
     return ex.run(t, core_dims, scheme, n_invocations=n_invocations,

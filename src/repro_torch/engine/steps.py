@@ -9,7 +9,16 @@ distributed step, the **comm backend** (``engine.comm``):
   stacked along a leading dimension on one device (the reference wraps the
   same function in ``shard_map``);
 * ``local_mode_step`` — the same composition with the identity partition
-  and no comm space: what ``repro_torch.core.hooi`` runs.
+  and no comm space: what ``repro_torch.core.hooi`` runs;
+* ``make_zbuild_step_fn`` — the Z-build alone over the stacked ranks (the
+  executor's ``profile_phases`` times it as the TTM phase);
+* ``make_stochastic_step_fn`` — one minibatch step of the stochastic-refine
+  rung: a sketch-seeded block solve over sampled elements on one device.
+
+The executor caches the first three kinds of step and, on the card,
+captures each into CUDA graphs (``repro_torch.graphs``); a step reaches its
+host factorizations and its draws only through ``graphs.host_call`` and
+``graphs.upload``, so the same code runs eagerly and captured.
 
 Both run the vector driver, or the block driver when the panel is wider
 than 1, the fused Z-build is on, or the mode runs the sketch warm start
@@ -38,7 +47,8 @@ from .oracle import (solve_oracle, solve_oracle_block, stacked_products,
                      z_products)
 from .zbuild import build_local_z, build_local_z_oracle
 
-__all__ = ["make_mode_step_fn", "local_mode_step"]
+__all__ = ["make_mode_step_fn", "make_zbuild_step_fn",
+           "make_stochastic_step_fn", "local_mode_step"]
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -52,6 +62,58 @@ def _khat(factors: Sequence[torch.Tensor], mode: int) -> int:
         if j != mode:
             Khat *= int(f.shape[1])
     return Khat
+
+
+def make_zbuild_step_fn(ms: dict, precision: str = "f32"):
+    """TTM-only step: the stacked ranks' Z build, ``(P*R_pad, K_hat)``.
+
+    ``fn(arrs, factors, key) -> Z`` over the arrays of
+    ``make_mode_step_fn`` (``coords``, ``values``, ``rows``); ``key`` is
+    unused. The executor's per-phase calibration probe.
+    """
+    num_rows, mode = ms["P"] * ms["R_pad"], ms["mode"]
+
+    def fn(arrs: dict, factors: Sequence[torch.Tensor], key: Key):
+        return build_local_z(arrs["coords"], arrs["values"], arrs["rows"],
+                             factors, mode, num_rows, precision=precision)
+
+    return fn
+
+
+def make_stochastic_step_fn(mode: int, num_rows: int, K_n: int, niter: int,
+                            block_size: int, precision: str = "f32"):
+    """One minibatch mode step of the stochastic-refine rung.
+
+    ``local_mode_step``'s sketch path over sampled elements: the Z-build
+    (the elements are unsorted, so the device sort runs first), the seed
+    ``Zᵀ F_n[:, :w]`` of the carried factor, one power iteration and the
+    block driver's ``niter`` iterations at ``block_size``, all on one
+    device and with the plain products, as the reference's step.
+
+    ``fn(arrs, factors, key) -> (left, S)``: ``arrs`` holds the minibatch's
+    ``coords`` (original coordinates, zero-padded to a power of two: the
+    padding has value 0 and adds nothing) and ``values``; ``left`` is an
+    orthonormal (num_rows, K_n) basis the caller blends into the carried
+    factor (``core.stochastic.blend_factor``) and refines with the
+    objective.
+    """
+
+    def fn(arrs: dict, factors: Sequence[torch.Tensor], key: Key):
+        coords, values = arrs["coords"], arrs["values"]
+        Z = build_local_z(coords, values, coords[:, mode], factors, mode,
+                          num_rows, sorted_rows=False, precision=precision)
+        matvec, rmatvec = z_products(Z)
+        Khat = int(Z.shape[1])
+        seed = Z.T @ factors[mode][:, :min(int(block_size), K_n)]
+        first_panel = seeded_start_panel(seed, key, Khat, block_size)
+        first_panel = power_refine(matvec, rmatvec, first_panel,
+                                   DEFAULT_POWER_ITERS)
+        U, B = gk_block_bidiag(matvec, rmatvec, num_rows, Khat, niter,
+                               block_size, key, axis=None,
+                               first_panel=first_panel, device=Z.device)
+        return svd_from_bidiag(U, B, K_n, key, axis=None)
+
+    return fn
 
 
 def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int):

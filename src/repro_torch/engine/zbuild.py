@@ -27,20 +27,28 @@ PRECISIONS = envknobs.PRECISIONS
 def resolve_precision(precision: str | None) -> str:
     """Z-build precision for a mode step: ``"f32"`` or ``"bf16"``.
 
-    ``None`` honors ``REPRO_PRECISION``, else f32. The reference's
-    ``"auto"`` consults the fitted cost model, which this slice does not
-    have.
+    ``None`` and ``"auto"`` honor ``REPRO_PRECISION``; ``"auto"`` then
+    consults the current ``CostModel`` (``core.calibrate``): when
+    calibration measured a bf16 TTM rate above 1.05 times the f32 one, it
+    picks bf16, as the reference does. Otherwise f32.
     """
     if precision in PRECISIONS:
         return precision
-    if precision == "auto":
-        raise NotImplementedError(
-            "precision='auto' consults the fitted CostModel; calibration is "
-            "ROADMAP Queue A item 10")
-    if precision is not None:
+    if precision not in (None, "auto"):
         raise ValueError(f"unknown precision {precision!r} "
                          f"(expected one of {PRECISIONS + ('auto', None)})")
-    return envknobs.precision() or "f32"
+    env = envknobs.precision()
+    if env is not None:
+        return env
+    if precision == "auto":
+        from repro_torch.core.calibrate import current_cost_model
+
+        model = current_cost_model()
+        bf16 = model.ttm_flop_rate_bf16
+        f32 = model.ttm_flop_rate or model.flop_rate
+        if bf16 and bf16 > 1.05 * f32:
+            return "bf16"
+    return "f32"
 
 
 def resolve_fused_zbuild(fused_zbuild: bool | None) -> bool:

@@ -1,0 +1,348 @@
+"""Mode steps as captured CUDA graphs: the port's counterpart of a jitted step.
+
+The reference compiles each distributed mode step once with ``jax.jit`` and
+then dispatches it as one program. Here a step is eager PyTorch code, and its
+counterpart of a compilation is a **capture**: the step's launches recorded
+into ``torch.cuda.CUDAGraph`` objects that later calls replay.
+
+A step leaves the device on purpose at two kinds of points, and calls this
+module there instead of moving data itself:
+
+* ``upload(make_host, device)`` — a host tensor that depends on the step's
+  random draws only: a draw of the seam (``random.Key.normal``) or
+  ``block_start_panel``'s QR of one. Eagerly it is ``make_host().to(device)``.
+  Under capture it is a slot of one pinned host buffer; before every replay
+  the slots are refilled from the call's own key (the draws differ per
+  sweep, along ``1000 + it*N + n``), and the first node of the first graph
+  copies the whole buffer to the device. A pageable copy is never captured.
+* ``host_call(fn, *tensors)`` — a small factorization on the host (the
+  bidiagonal SVD, the sketch's QRs), which the port keeps on the host so
+  that card and CPU runs share signs. Eagerly it is ``fn`` of the tensors'
+  host copies, moved back. Under capture it cuts the step: the graph
+  captured so far ends as one **segment** and runs, ``fn`` reads its
+  outputs, and its results are copied into static device buffers through
+  pinned memory by the first nodes of the next segment.
+
+``StepGraph.capture`` runs the step once eagerly on a side stream (the
+warm-up: kernels built, scratch grown, the upload slots counted), then
+captures it segment by segment over static inputs: the step's arrays (which
+must stay the same objects), copies of the factors, and the upload slots. A
+call then copies the new factors and draws in and replays the segments in
+order, running the host calls between them. A step with no host call is one
+segment; the default block step is two (the SVD cuts it), a sketch step
+four (the seed's QR, the power iteration's QR, the SVD). A failed capture
+raises; nothing falls back to the eager step.
+
+Every step of one ``CaptureHome`` shares its memory pool, so replays of
+different steps must not overlap on the card: they are serialized under the
+home's lock on the host and chained on the card through ``CaptureHome.last``,
+which each replay (or capture) waits for and then records, whatever stream
+the caller runs on.
+
+A kernel wrapper counts only the launches it makes; a launch recorded under
+capture runs at each replay, and the wrapper does not count it. A buffer a
+recorded launch uses that lives outside the pool (``oracle_pair``'s scratch)
+is handed to ``keep`` and lives as long as the step.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Callable
+
+import torch
+
+__all__ = ["upload", "host_call", "keep", "StepGraph", "CaptureHome"]
+
+_STATE = threading.local()
+
+
+def _recorder():
+    return getattr(_STATE, "rec", None)
+
+
+@contextlib.contextmanager
+def _recording(rec):
+    prev = _recorder()
+    _STATE.rec = rec
+    try:
+        yield rec
+    finally:
+        _STATE.rec = prev
+
+
+def upload(make_host: Callable[[], torch.Tensor],
+           device: str | torch.device) -> torch.Tensor:
+    """``make_host()`` (a host tensor that depends on the step's draws
+    only) on ``device``; under capture a slot refilled on every replay."""
+    dev = torch.device(device)
+    rec = _recorder()
+    if rec is None or dev.type != "cuda":
+        return make_host().to(device=dev)
+    return rec.upload(make_host, dev)
+
+
+def host_call(fn: Callable, *tensors: torch.Tensor):
+    """``fn`` of the tensors' host copies, with its results (a tensor or a
+    tuple of tensors, on the host) moved to the tensors' device; under
+    capture a cut between two segments."""
+    rec = _recorder()
+    if rec is None or rec.mode != "capture" or not tensors[0].is_cuda:
+        outs = fn(*(t.cpu() for t in tensors))
+        dev = tensors[0].device
+        if isinstance(outs, torch.Tensor):
+            return outs.to(dev)
+        return tuple(o.to(dev) for o in outs)
+    return rec.cut(fn, tensors)
+
+
+def keep(*objs) -> None:
+    """Keep ``objs`` alive as long as the step being captured (a buffer
+    outside the capture pool that a recorded launch reads or writes); no-op
+    outside a capture."""
+    rec = _recorder()
+    if getattr(rec, "mode", None) == "capture":
+        rec.kept.extend(objs)
+
+
+class _KeySlot:
+    """A draw that forwards to the key of the current call: the captured
+    step's closures hold keys built on it, so each replay draws along its
+    own call's paths."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def __call__(self, path, shape, **params):
+        return self.key.draw(self.key.path + tuple(path), shape, **params)
+
+
+class CaptureHome:
+    """What the captured steps of one executor share on one device: a
+    memory pool, the side stream their warm-ups and captures run on, and
+    the event that orders them. The steps' intermediates share the pool's
+    blocks, so no two replays may overlap on the card: they run under
+    ``lock``, and each one's stream first waits for ``last``, the end of the
+    one before, then records it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.lock = threading.RLock()
+        self.last = torch.cuda.Event()  # no wait before its first record
+        self.renew()
+
+    def renew(self) -> None:
+        """A fresh pool and side stream. After a failed capture the old
+        ones may still be marked as capturing (the allocator keeps routing
+        the stream's allocations into the pool), so they are left behind;
+        graphs captured into the old pool keep it alive and stay valid."""
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(self.device)
+
+
+@dataclasses.dataclass
+class _HostOp:
+    fn: Callable
+    inputs: tuple  # static device tensors of the segment before
+    pinned: tuple  # pinned host buffers the next segment copies in
+    outputs: tuple  # the device buffers it copies them to (kept alive)
+
+
+@dataclasses.dataclass
+class _Warmup:
+    """Recorder of the eager warm-up: the upload slots, in call order."""
+
+    slots: list = dataclasses.field(default_factory=list)
+    mode: str = "warmup"
+
+    def upload(self, make_host, dev):
+        val = make_host()
+        self.slots.append((make_host, tuple(val.shape), val.dtype))
+        return val.to(device=dev)
+
+
+class StepGraph:
+    """One captured step: its segments, host calls and static buffers."""
+
+    mode = "capture"
+
+    def __init__(self, home: CaptureHome, arrs, factors):
+        self.home = home
+        self.arrs = arrs
+        self.shapes = tuple(tuple(f.shape) for f in factors)
+        self.segments: list[torch.cuda.CUDAGraph] = []
+        self.kept: list = []  # buffers outside the pool the launches use
+        self.host_ops: list[_HostOp] = []
+        self.outputs: tuple = ()
+        self.single = False  # the step returns one tensor, not a tuple
+        self.slot = None
+        self.slots: list = []  # (make_host, shape, offset, numel)
+        self.pinned = self.staged = None
+        self.factors: list[torch.Tensor] = []
+        self._next_slot = 0
+        self._graph = None
+        self._done = None
+
+    # ------------------------------------------------------------ capture
+    @classmethod
+    def capture(cls, home: CaptureHome, fn: Callable, arrs, factors, key):
+        """Warm up, capture and run ``fn(arrs, factors, key)``; returns the
+        step and its first outputs (copies)."""
+        from repro_torch.random import Key
+
+        dev = home.device
+        sg = cls(home, arrs, factors)
+        sg.slot = _KeySlot(key)
+        skey = Key(sg.slot, ())
+        sg.factors = [torch.empty(f.shape, dtype=f.dtype, device=dev)
+                      .copy_(f) for f in factors]
+        caller = torch.cuda.current_stream(dev)
+        home.stream.wait_stream(caller)
+        home.stream.wait_event(home.last)
+        warm = _Warmup()
+        with torch.cuda.stream(home.stream), _recording(warm):
+            fn(arrs, sg.factors, skey)
+        home.stream.synchronize()
+        off = 0
+        for make_host, shape, dtype in warm.slots:
+            if dtype != torch.float32:
+                raise RuntimeError(f"a captured step uploads {dtype} "
+                                   f"{shape}: only float32 draws are staged")
+            n = 1
+            for s in shape:
+                n *= int(s)
+            sg.slots.append((make_host, shape, off, n))
+            off += n
+        sg.pinned = torch.empty(max(off, 1), dtype=torch.float32,
+                                pin_memory=True)
+        sg.staged = torch.empty(max(off, 1), dtype=torch.float32, device=dev)
+        sg._fill(sg._draw())
+        torch.cuda.synchronize(dev)
+        with torch.cuda.stream(home.stream), _recording(sg):
+            sg._begin(first=True)
+            try:
+                out = fn(arrs, sg.factors, skey)
+                sg._end()
+            except BaseException:
+                sg._abort()
+                home.renew()
+                raise
+            if sg._next_slot != len(sg.slots):
+                raise RuntimeError(
+                    f"the capture made {sg._next_slot} uploads, the "
+                    f"warm-up {len(sg.slots)}: the step is not the same "
+                    "code twice")
+            sg.single = not isinstance(out, (tuple, list))
+            sg.outputs = (out,) if sg.single else tuple(out)
+            sg._replay_segment(len(sg.segments) - 1)
+            result = sg._results()
+        caller.wait_stream(home.stream)
+        sg._done = torch.cuda.Event()
+        sg._done.record(caller)
+        home.last.record(caller)
+        return sg, result
+
+    def _begin(self, first: bool = False) -> None:
+        self._graph = torch.cuda.CUDAGraph()
+        self._graph.capture_begin(pool=self.home.pool,
+                                  capture_error_mode="thread_local")
+        if first:  # every upload slot, in one copy
+            self.staged.copy_(self.pinned, non_blocking=True)
+
+    def _end(self) -> None:
+        self._graph.capture_end()
+        self.segments.append(self._graph)
+        self._graph = None
+
+    def _abort(self) -> None:
+        """End a capture that failed, so the stream is usable again."""
+        if self._graph is not None:
+            try:
+                self._graph.capture_end()
+            except RuntimeError:
+                pass
+            self._graph = None
+
+    def upload(self, make_host, dev) -> torch.Tensor:
+        i = self._next_slot
+        if i >= len(self.slots):
+            raise RuntimeError("the capture made more uploads than the "
+                               "warm-up")
+        _, shape, off, n = self.slots[i]
+        self._next_slot += 1
+        return self.staged[off:off + n].view(shape)
+
+    def cut(self, fn, tensors):
+        """End the segment, run it, run ``fn`` on the host, and begin the
+        next segment with the copies of its results."""
+        self._end()
+        self._replay_segment(len(self.segments) - 1)
+        outs = fn(*(t.cpu() for t in tensors))
+        single = isinstance(outs, torch.Tensor)
+        outs = (outs,) if single else tuple(outs)
+        pinned = tuple(torch.empty(o.shape, dtype=o.dtype,
+                                   pin_memory=True).copy_(o) for o in outs)
+        dev = tuple(torch.empty(o.shape, dtype=o.dtype,
+                                device=self.home.device) for o in outs)
+        self.host_ops.append(_HostOp(fn, tuple(tensors), pinned, dev))
+        self._begin()
+        for d, p in zip(dev, pinned):
+            d.copy_(p, non_blocking=True)
+        return dev[0] if single else dev
+
+    # ------------------------------------------------------------- replay
+    def _draw(self) -> list[torch.Tensor]:
+        """Every upload slot's host values for the current key."""
+        vals = []
+        for make_host, shape, _, _ in self.slots:
+            val = make_host()
+            if tuple(val.shape) != shape:
+                raise RuntimeError(f"an upload slot of shape {shape} got "
+                                   f"{tuple(val.shape)}")
+            vals.append(val)
+        return vals
+
+    def _fill(self, vals: list[torch.Tensor]) -> None:
+        for val, (_, _, off, n) in zip(vals, self.slots):
+            self.pinned[off:off + n].copy_(val.reshape(-1))
+
+    def _results(self):
+        result = tuple(o.clone() for o in self.outputs)
+        return result[0] if self.single else result
+
+    def _replay_segment(self, i: int) -> None:
+        self.segments[i].replay()
+
+    def __call__(self, arrs, factors, key):
+        """Replay on the current stream with new factors and draws."""
+        if arrs is not self.arrs:
+            raise RuntimeError("a captured step replays over the arrays it "
+                               "was captured with")
+        if tuple(tuple(f.shape) for f in factors) != self.shapes:
+            raise RuntimeError(
+                f"factor shapes {[tuple(f.shape) for f in factors]} "
+                f"differ from the captured {self.shapes}")
+        with self.home.lock:
+            stream = torch.cuda.current_stream(self.home.device)
+            self.slot.key = key
+            vals = self._draw()  # on the host while the card still works
+            self._done.synchronize()  # the last replay has read the buffers
+            self._fill(vals)
+            stream.wait_event(self.home.last)
+            for s, f in zip(self.factors, factors):
+                s.copy_(f)
+            for i in range(len(self.segments)):
+                self._replay_segment(i)
+                if i < len(self.host_ops):
+                    op = self.host_ops[i]
+                    outs = op.fn(*(t.cpu() for t in op.inputs))
+                    outs = (outs,) if isinstance(outs, torch.Tensor) \
+                        else tuple(outs)
+                    for p, o in zip(op.pinned, outs):
+                        p.copy_(o)
+            result = self._results()
+            self._done.record(stream)
+            self.home.last.record(stream)
+        return result

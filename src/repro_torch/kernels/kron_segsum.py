@@ -24,7 +24,8 @@ shared memory (Ka + Kb up to about 1,250 floats, so K̂ = 1000 for 4-mode
 tensors at K = 10 included); a wider one raises.
 
 ``kron_segsum.launches`` and ``kron_segsum_oracle.launches`` count the
-calls that launched each kernel, in either form.
+calls that launched each kernel, in either form; a call under stream
+capture records a launch and is not counted.
 """
 
 from __future__ import annotations
@@ -139,10 +140,11 @@ def _run(rows, values, coords, A, B, col_a, col_b, E, Ka, Kb, num_rows, X,
         raise RuntimeError(f"kron_segsum launch failed with CUDA error {rc} "
                            f"(E={E}, Ka={Ka}, Kb={Kb}, N={N}, "
                            f"s={None if X is None else X.shape[1]})")
+    counted = 0 if torch.cuda.is_current_stream_capturing() else 1
     if X is None:
-        kron_segsum.launches += 1
+        kron_segsum.launches += counted
         return z
-    kron_segsum_oracle.launches += 1
+    kron_segsum_oracle.launches += counted
     return z, zx
 
 

@@ -12,10 +12,12 @@ CUDA tensor goes to the kernel, and anything the kernel does not take
 raises. The per-call host work is kept small: shape checks on attributes,
 one ``torch.empty`` per output, the current stream's raw handle (the one
 ``torch.cuda.current_stream(dev).cuda_stream`` gives, without building a
-``Stream`` object on every call), and the kernel's reduction scratch kept
-here per device and reused.
+``Stream`` object on every call; under capture the capturing stream), and
+the kernel's reduction scratch kept here per device and reused (a captured
+step holds the scratch its recorded launches write, ``graphs.keep``).
 
-``oracle_pair.launches`` counts the calls that launched the kernel.
+``oracle_pair.launches`` counts the calls that launched the kernel; a call
+under stream capture records a launch and is not counted.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from repro_torch.graphs import keep
 
 from . import build, ref
 
@@ -66,10 +70,20 @@ def _geometry(dev: torch.device, R: int, K: int, s: int, with_y: bool
 
 def _scratch(dev: torch.device, n_part: int, n_gpart: int, n_ticket: int):
     """Partials, group sums and zeroed tickets, at least these sizes. The
-    kernel leaves its tickets zero, so a buffer is zeroed only when made."""
+    kernel leaves its tickets zero, so a buffer is zeroed only when made.
+
+    A captured step records the scratch's address, so under capture the
+    scratch is handed to the step to keep (``graphs.keep``): a larger call
+    replaces it here, and the old buffer lives on as long as the steps that
+    write it. It may not grow during a capture (the eager warm-up before it
+    grows it at the same shapes)."""
     have = _SCRATCH.get(dev.index)
+    capturing = torch.cuda.is_current_stream_capturing()
     if have is None or have[0].numel() < n_part or have[1].numel() < n_gpart \
             or have[2].numel() < n_ticket:
+        if capturing:
+            raise RuntimeError("oracle_pair's scratch would grow during a "
+                               "capture; run the step eagerly first")
         n_part = max(n_part, 0 if have is None else have[0].numel())
         n_gpart = max(n_gpart, 0 if have is None else have[1].numel())
         n_ticket = max(n_ticket, 0 if have is None else have[2].numel())
@@ -77,6 +91,8 @@ def _scratch(dev: torch.device, n_part: int, n_gpart: int, n_ticket: int):
             torch.empty(n_part, dtype=torch.float32, device=dev),
             torch.empty(n_gpart, dtype=torch.float32, device=dev),
             torch.zeros(n_ticket, dtype=torch.int32, device=dev))
+    if capturing:
+        keep(have)
     return have
 
 
@@ -149,7 +165,8 @@ def oracle_pair(
     if rc != 0:
         raise RuntimeError(f"oracle_pair launch failed with CUDA error {rc} "
                            f"(R={R}, K={K}, s={s}, P={nP})")
-    oracle_pair.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        oracle_pair.launches += 1
     return xo, yo
 
 

@@ -39,6 +39,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.graphs import upload
+
 __all__ = ["Draw", "SeededDraws", "Key", "make_key"]
 
 Draw = Callable[..., torch.Tensor]
@@ -95,11 +97,16 @@ class Key:
                device: torch.device | str) -> torch.Tensor:
         """float32 standard normals of ``shape`` for this path, on ``device``."""
         shape = tuple(int(s) for s in shape)
-        out = self.draw(self.path, shape)
-        if tuple(out.shape) != shape:
-            raise ValueError(f"draw for path {self.path} returned shape "
-                             f"{tuple(out.shape)}, expected {shape}")
-        return out.to(device=device, dtype=torch.float32)
+
+        def make() -> torch.Tensor:
+            out = self.draw(self.path, shape)
+            if tuple(out.shape) != shape:
+                raise ValueError(f"draw for path {self.path} returned shape "
+                                 f"{tuple(out.shape)}, expected {shape}")
+            return out.to(dtype=torch.float32)
+
+        # a captured step refills the draw from each call's own key
+        return upload(make, device)
 
     def choice(self, n: int, size: int,
                device: torch.device | str) -> torch.Tensor:

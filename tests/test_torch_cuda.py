@@ -18,10 +18,14 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import hooi, ttm
-from repro_torch.distributed.dist_hooi import dist_hooi
+from repro_torch.core import plan as port_plan
+from repro_torch.distributed.dist_hooi import HooiExecutor, dist_hooi
 from repro_torch.data.tensors import synth_tensor
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
+from repro_torch.distributed import executor as exmod
+from repro_torch.engine.steps import make_mode_step_fn
+from repro_torch.kernels import oracle_fused
 from repro_torch.kernels.oracle_fused import oracle_pair
 from repro_torch.random import make_key
 
@@ -210,8 +214,12 @@ def test_dist_hooi_on_card_matches_cpu(cuda, path):
               oracle_pair.launches)
     dec_g, st_g = dist_hooi(t, (5, 5, 5), 4, **kw)
     assert kron_segsum.launches > counts[0]
-    assert kron_segsum_oracle.launches == counts[1] + 9  # 3 modes x 3 sweeps
-    assert oracle_pair.launches > counts[2]
+    # 3 modes x 3 sweeps: a step's first call captures it, after an eager
+    # warm-up that launches the kernel once; later calls replay the
+    # recorded launch, which the wrapper does not count
+    assert st_g.step_captures + st_g.graph_replays == 9
+    assert kron_segsum_oracle.launches == counts[1] + st_g.step_captures
+    assert oracle_pair.launches >= counts[2] + st_g.step_captures
     dec_c, st_c = dist_hooi(t, (5, 5, 5), 4, device="cpu", **kw)
     np.testing.assert_allclose(st_g.fits, st_c.fits, rtol=0, atol=1e-4)
     for F, Fc in zip(dec_g.factors, dec_c.factors):
@@ -376,3 +384,228 @@ def test_warm_starts_and_objectives_on_card_match_cpu(cuda, warm, objective):
         _, st_c = dist_hooi(t, (5, 5, 5), 4, path=path, device="cpu", **kw)
         assert st_g.warm_start == st_c.warm_start
         np.testing.assert_allclose(st_g.fits, st_c.fits, rtol=0, atol=1e-4)
+
+
+def _captured_case(warm_start, path):
+    """Per mode: the step's arrays, the uncached step made with
+    ``make_mode_step_fn`` and a call of the executor's cached step."""
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    pl = port_plan.plan(t, "lite", 4, core_dims=(5, 5, 5), path=path)
+    ex = HooiExecutor(4)
+    specs = ex._mode_specs(pl, (5, 5, 5), path, block_size=4,
+                           fused_zbuild=True, warm_start=warm_start)
+    up = ex._get_upload(pl, t, exmod._tally())
+    steps = []
+    for mp, sp in zip(pl.parts, specs):
+        kw = dict(use_fused=True, precision=sp.precision,
+                  block_size=sp.block_size, fused_zbuild=sp.fused_zbuild,
+                  warm_start=sp.warm_start)
+        skey, step = ex._get_step(mp, sp.backend, sp.K_n, niter=sp.niter,
+                                  objective=sp.objective, **kw)
+
+        def cached(arrs, factors, key, skey=skey, step=step):
+            return ex._call_step(skey, step, up, arrs, factors, key,
+                                 exmod._tally())
+
+        steps.append((up.arrs[mp.mode],
+                       make_mode_step_fn(exmod.step_spec(mp, **kw),
+                                         sp.backend, sp.K_n, sp.niter),
+                       cached))
+    factors = hooi.random_factors(t.shape, (5, 5, 5), make_key(1), "cuda")
+    return ex, steps, factors
+
+
+@pytest.mark.parametrize("warm_start,path", [("none", "baseline"),
+                                             ("none", "liteopt"),
+                                             ("sketch", "liteopt")],
+                         ids=["psum", "boundary", "sketch"])
+def test_captured_step_bitwise_eager(cuda, warm_start, path):
+    """A mode step captured into CUDA graphs gives the eager step's bits,
+    at its capture and at every replay, with each call's own draws and
+    factors copied in."""
+    ex, steps, factors = _captured_case(warm_start, path)
+    for n, (arrs, eager, cached) in enumerate(steps):
+        key = make_key(2).fold_in(1000 + n)
+        want = eager(arrs, factors, key)
+        for _ in range(2):  # the capture, then a replay
+            got = cached(arrs, factors, key)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        other = make_key(3).fold_in(1000 + n)
+        moved = [F.flip(0).contiguous() for F in factors]
+        want = eager(arrs, moved, other)
+        got = cached(arrs, moved, other)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ex.stats()["step_captures"] == 3
+    assert ex.stats()["step_compilations"] == 3
+
+
+def _stacked_call(P, device):
+    """An ``oracle_pair`` call over P stacked ranks at nell-2's mode-2
+    rows (K = 100, s = 8): its scratch grows with P."""
+    Z = torch.randn((P * 7206, 100), device=device)
+    y = torch.randn((P, 7206, 8), device=device)
+    return oracle_pair(Z, None, y, P)[1]
+
+
+def test_oracle_pair_scratch_growth_keeps_replays(cuda):
+    """Growing ``oracle_pair``'s scratch after a capture (a wider call)
+    must not free the buffer the captured step writes: memory taken after
+    the growth stays untouched by the step's replays, which stay bitwise
+    what they were. The step holds the old buffer, which goes with it."""
+    import gc
+    import weakref
+
+    _stacked_call(16, cuda)  # a scratch no earlier call needed
+    held = [(t.data_ptr(), t.numel(), t.dtype)
+            for t in oracle_fused._SCRATCH[0]]
+    ex, steps, factors = _captured_case("none", "liteopt")
+    arrs, eager, cached = steps[2]
+    key = make_key(2).fold_in(1002)
+    first = cached(arrs, factors, key)  # captured over that scratch
+    assert [t.data_ptr() for t in oracle_fused._SCRATCH[0]] == \
+        [p for p, _, _ in held]
+    _stacked_call(32, cuda)  # replaces it
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in oracle_fused._SCRATCH[0]] != \
+        [p for p, _, _ in held]
+    kept = [k for up in ex._uploads.values() for g in up.graphs.values()
+            for k in g.kept]
+    old = [k for k in kept if [t.data_ptr() for t in k] ==
+           [p for p, _, _ in held]]
+    assert old
+    # had the old scratch been freed, these would take its blocks
+    fills = [torch.full((n,), 7, dtype=dtype, device=cuda)
+             for _, n, dtype in held]
+    again = cached(arrs, factors, key)
+    torch.cuda.synchronize()
+    assert all(bool((f == 7).all()) for f in fills)
+    assert all(torch.equal(a, b) for a, b in zip(again, first))
+    assert all(torch.equal(a, b) for a, b in
+               zip(again, eager(arrs, factors, key)))
+    gone = weakref.ref(old[0][0])
+    del ex, steps, cached, kept, old
+    gc.collect()
+    assert gone() is None  # freed with the steps that held it
+
+
+def test_failed_capture_raises(cuda):
+    """A step that reads the device inside a segment cannot be captured:
+    the capture raises (no eager fallback), its counts are taken back, and
+    the card captures the next step normally."""
+    from repro_torch.graphs import CaptureHome, StepGraph
+
+    home = CaptureHome(torch.device("cuda", torch.cuda.current_device()))
+    arrs = {"x": torch.arange(8.0, device=cuda)}
+    factors = [torch.ones((4, 2), device=cuda)]
+
+    def reads_the_device(arrs, factors, key):
+        y = arrs["x"] * factors[0].sum()
+        return y * float(y.sum())  # a host read inside the segment
+
+    def plain(arrs, factors, key):
+        return arrs["x"] * factors[0].sum()
+
+    counts = oracle_pair.launches
+    with pytest.raises(RuntimeError):
+        StepGraph.capture(home, reads_the_device, arrs, factors, make_key(0))
+    assert oracle_pair.launches == counts
+    graph, out = StepGraph.capture(home, plain, arrs, factors, make_key(0))
+    assert torch.equal(out, plain(arrs, factors, None))
+    assert torch.equal(graph(arrs, [2 * factors[0]], make_key(1)),
+                       plain(arrs, [2 * factors[0]], None))
+
+
+def test_stage_upload_from_a_thread_while_sweeping(cuda):
+    """``stage_upload`` of one plan in a producer thread while the caller
+    sweeps another: the staged plan then runs with no upload and gives
+    the bits of a run on a fresh executor."""
+    import threading
+
+    ta = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    tb = synth_tensor((50, 40, 30), 15_000, alphas=(1.0, 1.0, 1.0), seed=4)
+    core = (5, 5, 5)
+    pa = port_plan.plan(ta, "lite", 4, core_dims=core)
+    pb = port_plan.plan(tb, "lite", 4, core_dims=core)
+    ex = HooiExecutor(4)
+    ex.run(ta, core, pa, n_invocations=1)
+    staged = {}
+    worker = threading.Thread(
+        target=lambda: staged.update(ex.stage_upload(pb, tb)))
+    worker.start()
+    ex.run(ta, core, pa, n_invocations=3, seed=1)
+    worker.join()
+    assert staged == {"uploads": 32, "already_resident": False}
+    _, st = ex.run(tb, core, pb, n_invocations=2, seed=2)
+    assert st.uploads == 0 and st.upload_cache_hit
+    _, fresh = HooiExecutor(4).run(tb, core, pb, n_invocations=2, seed=2)
+    assert st.fits == fresh.fits
+
+
+def test_concurrent_sweeps_share_the_capture_pool(cuda):
+    """Two threads sweep two plans on one executor, each on a stream of its
+    own, capturing and then replaying: the steps share one memory pool, so
+    their replays must not overlap on the card. Each thread's runs give
+    the bits of the same runs made alone."""
+    import threading
+
+    core = (5, 5, 5)
+    kw = dict(n_invocations=3, lanczos_block=4, fused_zbuild=True,
+              use_fused_oracle=True)
+    cases = {}
+    for name, shape, nnz, seed in (("a", (60, 50, 40), 20_000, 3),
+                                   ("b", (50, 40, 30), 15_000, 4)):
+        t = synth_tensor(shape, nnz, alphas=(1.1, 1.0, 0.9), seed=seed)
+        cases[name] = (t, port_plan.plan(t, "lite", 4, core_dims=core))
+
+    def sweeps(ex, name):
+        t, pl = cases[name]
+        return [ex.run(t, core, pl, seed=s, **kw) for s in (1, 2, 3)]
+
+    alone = {name: sweeps(HooiExecutor(4), name) for name in cases}
+    ex = HooiExecutor(4)
+    got, errors = {}, []
+
+    def worker(name):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                got[name] = sweeps(ex, name)
+                torch.cuda.current_stream().synchronize()
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(n,)) for n in cases]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    assert ex.stats()["step_captures"] == 6
+    assert ex.stats()["graph_replays"] == 2 * 3 * 3 * 3 - 6
+    for name in cases:
+        for (dec, st), (dec0, st0) in zip(got[name], alone[name]):
+            assert st.fits == st0.fits
+            assert all(torch.equal(a, b)
+                       for a, b in zip(dec.factors, dec0.factors))
+
+
+def test_run_stochastic_on_card(cuda):
+    """The rung on the card: a rerun captures, compiles and uploads
+    nothing and gives the same bits; fits within 1e-4 of the CPU's."""
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    core = (5, 5, 5)
+    covered = t.nnz - t.nnz // 100
+    init = hooi.random_factors(t.shape, core, make_key(4), "cpu")
+    kw = dict(init_factors=init, covered_nnz=covered, sample_fraction=0.25,
+              sample_seed=7, replay_nnz=256, n_invocations=2, seed=1)
+    ex = HooiExecutor(4)
+    pl = port_plan.plan(t, "lite", 4, core_dims=core)
+    dec, st = ex.run_stochastic(t, core, pl, **kw)
+    assert st.step_captures == 3 and st.uploads == 4
+    again_dec, again = ex.run_stochastic(t, core, pl, **kw)
+    assert (again.step_compilations, again.step_captures,
+            again.uploads) == (0, 0, 0)
+    assert again.fits == st.fits
+    assert all(torch.equal(a, b) for a, b in
+               zip(again_dec.factors, dec.factors))
+    _, cpu = HooiExecutor(4, "cpu").run_stochastic(t, core, pl, **kw)
+    np.testing.assert_allclose(st.fits, cpu.fits, rtol=0, atol=1e-4)

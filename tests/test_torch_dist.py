@@ -273,8 +273,9 @@ def test_executor_checks(monkeypatch, small_tensor):
         dist_hooi(t, (3, 3, 3), 2, executor=ex)
     with pytest.raises(ValueError, match="objective"):
         ex.run(t, (3, 3, 3), pl, objective="nn")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        ex.run(t, (3, 3, 3), pl, precision="auto")
+    # precision="auto" resolves under the default cost model (no bf16 rate)
+    _, st = ex.run(t, (3, 3, 3), pl, n_invocations=1, precision="auto")
+    assert st.precision == "f32"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dist_hooi(t, (3, 3, 3), 4)

@@ -196,14 +196,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     dict(precision="auto"),
 ])
 def test_out_of_slice_knobs_refuse(kw, small_tensor):
-    """Only ``precision="auto"`` is still outside the port (ROADMAP Queue A
-    item 10); the warm starts and objectives of items 8 and 9 run."""
+    """Every knob of the reference runs: the warm starts and objectives of
+    Queue A items 8 and 9, and ``precision="auto"`` since item 10 (under
+    the default cost model it resolves to f32, as the reference's)."""
     t = convert.sparse_tensor(small_tensor.coords, small_tensor.values,
                               small_tensor.shape)
-    if "precision" in kw:
-        with pytest.raises(NotImplementedError, match="Queue A item 10"):
-            port.hooi(t, (3, 3, 3), n_invocations=1, device="cpu", **kw)
-        return
     _, fits = port.hooi(t, (3, 3, 3), n_invocations=1, device="cpu", **kw)
     assert len(fits) == 1 and np.isfinite(fits[0]) and 0 <= fits[0] <= 1
 
