@@ -86,9 +86,26 @@ Phases, each fatal on failure (nothing is caught):
     sample_seed=7, replay_nnz=1024``, three chained refines from phase 8's
     factors (seconds, minibatch, fits and their gap to the full run), the
     first again (0 captures, 0 uploads, bitwise equal), and a small tensor
-    on the card against the CPU.
+    on the card against the CPU;
+16. ``StreamScheduler`` on a fresh shared executor (P = 4, the earlier
+    phases' plan released) through the refresh ladder, the stream seeded
+    with the nell-2-sized tensor (geometric pads, its own plan build):
+    ``plan`` (then a direct run bitwise its fits), ``reuse`` (0
+    compilations, captures, uploads), 1% new elements ->
+    ``stochastic-refine`` (the snapshot's ``_true_norm2`` spares its fits
+    the host's sum of squares), value updates at 1% of the coordinates ->
+    ``repartition`` (``correction_every=2``; the scheme and the padded
+    shapes kept, no step compiled), ``reuse``, a hub batch of 18% of the
+    elements at one coordinate -> ``reselect``; per rung the decision,
+    drift, ``prepare_s``/``run_s``/``queue_wait_s``, captures, uploads,
+    replays and fits, then ``scheduler.stats()``, the appends' seconds and
+    the host's peak RSS; then, on the reselect plan's stacked partitions
+    (E_pad 2^25 per rank, the hub batch's elements in a few rows of every
+    mode, the largest row's count logged), the gather-form ``kron_segsum`` against its plain version (summed in
+    element chunks) and ``oracle_pair`` on that Z against its plain
+    version, each rerun bitwise.
 
-The distributed phases (7, 8, 9, 13, 14, 15) run right after the kernel
+The distributed phases (7, 8, 9, 13, 14, 15, 16) run right after the kernel
 checks (3); when the run is late, the single-process paths are cut to one
 invocation (never their shape).
 
@@ -1239,6 +1256,7 @@ def phase_stochastic(t, pl, factors, full_fit: float) -> dict:
     t1 = time.perf_counter()
     float(np.sum(t.values ** 2))
     t2 = time.perf_counter()
+    out["norm2_s"] = t2 - t1
     log(f"host work of a refine: sample_batch {t1 - t0:.4f} s; ‖T‖² over "
         f"the snapshot's values {t2 - t1:.4f} s (fit_score computes it for "
         f"every fit: twice a refine)")
@@ -1262,6 +1280,276 @@ def phase_stochastic(t, pl, factors, full_fit: float) -> dict:
     if not diff <= 1e-4:
         raise AssertionError(f"refine card and CPU fits differ by {diff}")
     return out
+
+
+# the scheduler phase: appends that walk the refresh ladder at nell-2 size
+LADDER = ("plan", "reuse", "stochastic-refine", "repartition", "reuse",
+          "reselect")
+LADDER_DRIFT_TOL = 0.25  # StreamScheduler's default
+HUB_SHARE = 0.18  # hub batch over the seed's elements (see phase_scheduler)
+
+
+def host_peak_rss_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def phase_scheduler(t, stoch: dict) -> dict:
+    """``StreamScheduler`` on the shared executor through every rung of the
+    refresh ladder, the stream seeded with the nell-2-sized tensor ``t``:
+
+    1. ``plan``: the seed snapshot, its Lite plan built with geometric pads
+       (the scheduler's default); then a direct ``ex.run`` on that plan,
+       seed and knobs must give the rung's fits bitwise;
+    2. ``reuse``, submitted behind rung 1 (nothing appended): 0
+       compilations, captures and uploads;
+    3. 1% new elements of the same skew (``synth_tensor`` at another
+       seed): ``stochastic-refine`` (``sample_fraction=0.25,
+       sample_seed=7, replay_nnz=1024``, as ``phase_stochastic``);
+    4. value updates at 1% of the existing coordinates: with
+       ``correction_every=2`` the second low-drift append takes
+       ``repartition``: the scheme and every padded shape kept, so no step
+       compiles; the steps are captured again over the new arrays (a
+       graph is bound to the arrays it was captured over);
+    5. ``reuse`` again, submitted behind rung 4;
+    6. a hub batch, ``HUB_SHARE`` of the seed's elements at one
+       coordinate: ``reselect``. At P = 4 a rank holding E/P elements that
+       gains H more crosses 1.25x a balanced baseline only when
+       H > 0.09 E; 0.18 E is clear of the tolerance.
+
+    Launch counts are reset before each submit that waits for nothing
+    ahead of it and read after the results it waited for. Then
+    ``_hub_checks`` holds the kernels against their plain versions on the
+    reselect plan's partitions.
+    """
+    import torch
+    from repro_torch.data.tensors import synth_tensor
+    from repro_torch.distributed.dist_hooi import shared_executor
+    from repro_torch.engine.scheduler import StreamScheduler
+    from repro_torch.streaming import StreamingTensor
+
+    t0 = time.perf_counter()
+    stream = StreamingTensor.from_tensor(t, name="nell-2")
+    snap = stream.snapshot()
+    out = {"rungs": [], "append_s": [], "launches_by_group": [],
+           "seed_append_s": time.perf_counter() - t0}
+    log(f"stream seeded with the main tensor in {out['seed_append_s']:.3f} "
+        f"s (append and snapshot); host peak RSS "
+        f"{host_peak_rss_gib():.3f} GiB")
+    ex = shared_executor(DIST_P)
+    nnz = snap.nnz
+    rng = np.random.default_rng(11)
+    new = synth_tensor(MAIN_SHAPE, MAIN_NNZ // 100, alphas=MAIN_ALPHAS,
+                       seed=1)
+    updates = snap.coords[rng.integers(0, nnz, nnz // 100)]
+    hub = int(HUB_SHARE * nnz)
+    appends = [None, None, (new.coords, new.values),
+               (updates, 0.1 * rng.standard_normal(len(updates))), None,
+               (np.tile(snap.coords[0], (hub, 1)),
+                rng.standard_normal(hub))]
+    del snap, new, updates
+    sched = StreamScheduler(
+        ex, CORE, scheme="lite", path="auto", plan_seed=0,
+        pad_geometric=True, n_invocations=DIST_INVOCATIONS,
+        sample_fraction=0.25, sample_seed=7, replay_nnz=1024,
+        correction_every=2, use_fused_oracle=True)
+    try:
+        pending = []
+        for k, batch in enumerate(appends):
+            if batch is not None:
+                t0 = time.perf_counter()
+                stream.append(*batch)
+                out["append_s"].append(time.perf_counter() - t0)
+                log(f"scheduler: appended {len(batch[0])} elements before "
+                    f"submit {k + 1} in {out['append_s'][-1]:.3f} s")
+            if not pending:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+            pending.append(sched.submit(stream, name="nell-2", seed=k))
+            # a rung with nothing appended before it is submitted behind
+            # the one before (its prepare waits for that one's), so the
+            # two overlap; every other submit waits for its result first
+            if k + 1 < len(appends) and appends[k + 1] is None:
+                continue
+            results = [fut.result() for fut in pending]
+            launches = launch_counts()
+            out["launches_by_group"].append(
+                {"rungs": [r.seq + 1 for r in results], **launches})
+            for res in results:
+                out["rungs"].append(_ladder_rung(res))
+            log(f"launches over rungs {[r.seq + 1 for r in results]}: "
+                f"{launches}")
+            pending = []
+            if k == 1:
+                _ladder_direct_check(ex, stream, out["rungs"][0])
+    finally:
+        sched.close()
+    out["stats"] = sched.stats()
+    decisions = [r["decision"] for r in out["rungs"]]
+    st = out["stats"]
+    log(f"scheduler ladder {decisions}; stats host_s={st['host_s']:.4f} "
+        f"device_s={st['device_s']:.4f} wall_s={st['wall_s']:.4f} "
+        f"overlap_s={st['overlap_s']:.4f} queue_wait_s="
+        f"{st['queue_wait_s']:.4f} decisions={st['decisions']}; host peak "
+        f"RSS {host_peak_rss_gib():.3f} GiB")
+    if decisions != list(LADDER):
+        raise AssertionError(f"ladder decisions {decisions}, expected "
+                             f"{list(LADDER)}")
+    rungs = out["rungs"]
+    for r in (rungs[1], rungs[4]):
+        st_ = r["stats"]
+        if (st_.step_compilations, st_.step_captures, st_.uploads) != \
+                (0, 0, 0) or r["plan"] is not rungs[r["seq"] - 1]["plan"]:
+            raise AssertionError(
+                f"reuse rung {r['seq'] + 1} moved or captured: "
+                f"{st_.step_compilations} compilations, "
+                f"{st_.step_captures} captures, {st_.uploads} uploads")
+    rep, first = rungs[3], rungs[0]["plan"]
+
+    def padded(pl):
+        return [(mp.E_pad, mp.R_pad, mp.Lp) for mp in pl.parts]
+
+    log(f"repartition: padded (E_pad, R_pad, Lp) {padded(rep['plan'])}, "
+        f"the plan rung's {padded(first)}; "
+        f"{rep['stats'].step_compilations} compilations, "
+        f"{rep['stats'].step_captures} captures")
+    if rep["plan"].scheme.name != first.scheme.name or \
+            rep["plan"].candidates is not None or \
+            padded(rep["plan"]) != padded(first) or \
+            rep["stats"].step_compilations:
+        raise AssertionError(
+            f"repartition: scheme {rep['plan'].scheme.name}, padded "
+            f"{padded(rep['plan'])} against {padded(first)}, "
+            f"{rep['stats'].step_compilations} compilations")
+    if not rungs[5]["drift"]["worst"] > 1 + LADDER_DRIFT_TOL:
+        raise AssertionError(f"reselect at drift {rungs[5]['drift']}")
+    total = {name: sum(g[name] for g in out["launches_by_group"])
+             for name in ("kron_segsum", "kron_segsum_oracle",
+                          "oracle_pair")}
+    out["launches"] = total
+    for name in ("kron_segsum", "oracle_pair"):
+        if total[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 "scheduler path")
+    refine = rungs[2]
+    cached = stoch["refines"][1:]
+    log(f"stochastic refine wall: through the scheduler run_s="
+        f"{refine['run_s']:.4f} s ({refine['stats'].step_captures} "
+        f"captures, {refine['stats'].uploads} uploads; prepare_s "
+        f"{refine['prepare_s']:.4f} s; the snapshot carries _true_norm2); "
+        f"phase_stochastic's cached refines on the plain tensor "
+        f"(sum(values**2) per fit) "
+        + ", ".join(f"{r['wall_s']:.4f}" for r in cached)
+        + f" s, its host pass over the values {stoch['norm2_s']:.4f} s")
+    out["hub"] = _hub_checks(ex, rungs[5]["plan"], rungs[5]["factors"])
+    # the ladder's plans (and with them their uploads) go now; the plan
+    # cache held the repartition's and the reselect's
+    for r in rungs:
+        del r["plan"], r["factors"]
+    from repro_torch.core.plan import plan_cache_clear
+
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ladder_rung(res) -> dict:
+    """Log and check one scheduler result."""
+    st = res.stats
+    worst = None if res.drift is None else res.drift["worst"]
+    log(f"scheduler rung {res.seq + 1}: decision={res.decision} "
+        f"drift_worst={worst} prepare_s={res.prepare_s:.4f} "
+        f"run_s={res.run_s:.4f} queue_wait_s={res.queue_wait_s:.4f} "
+        f"step_compilations={st.step_compilations} "
+        f"step_captures={st.step_captures} uploads={st.uploads} "
+        f"graph_replays={st.graph_replays} fits={st.fits} "
+        f"fit_delta={st.fit_delta} sample_nnz={st.sample_nnz} "
+        f"stream_version={res.stream_version} scheme={res.plan.name} "
+        f"E_pad={[mp.E_pad for mp in res.plan.parts]}")
+    check_fits(st.fits, f"scheduler rung {res.seq + 1}")
+    return {"seq": res.seq, "decision": res.decision, "drift": res.drift,
+            "prepare_s": res.prepare_s, "run_s": res.run_s,
+            "queue_wait_s": res.queue_wait_s, "stats": st, "plan": res.plan,
+            "factors": res.decomposition.factors, "fits": list(st.fits)}
+
+
+def _ladder_direct_check(ex, stream, first: dict) -> None:
+    """A direct ``ex.run`` on the plan rung's plan, seed and knobs (the
+    scheduler is idle) gives its fits bitwise."""
+    snap = stream.snapshot()
+    _, st = ex.run(snap, CORE, first["plan"], n_invocations=DIST_INVOCATIONS,
+                   path="auto", seed=0, use_fused_oracle=True)
+    log(f"direct run on the plan rung's plan: fits {st.fits} "
+        f"(scheduler {first['fits']}), step_captures={st.step_captures} "
+        f"uploads={st.uploads}")
+    if st.fits != first["fits"]:
+        raise AssertionError("the scheduler's first run is not bitwise a "
+                             "direct run on the same plan and seed")
+
+
+HUB_CHUNK = 1 << 20  # elements per partial sum of the plain Z (hub checks)
+
+
+def _hub_checks(ex, pl, factors) -> dict:
+    """The kernels at the reselect rung's shapes, on the arrays its steps
+    ran over (the executor's resident upload of ``pl``: every mode's
+    stacked partition, E_pad 2^25 per rank, a few rows holding the hub
+    batch) and the rung's factors, each rerun bitwise:
+
+    * the gather-form ``kron_segsum`` (``penultimate_sorted``, f32, as the
+      vector-Lanczos step calls it) against its plain version; the plain Z
+      is summed over ``HUB_CHUNK``-element slices (``ref.kron_segsum_ref``
+      on each, added up in float64), so it fits beside the operands and
+      one f32 ``index_add_`` over a hub row's millions of terms does not
+      carry its own rounding into the comparison;
+    * ``oracle_pair`` on that Z as the vector Lanczos calls it: ``Z @ x``
+      over all stacked rows and the stacked ``Zᵀ y`` (P ranks, s = 1),
+      against its plain version.
+    """
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.oracle_fused import oracle_pair
+
+    up = ex._uploads[pl]
+    dev = factors[0].device
+    g = torch.Generator(device=dev).manual_seed(17)
+    errs = {"kron_segsum": 0.0, "oracle_pair": 0.0}
+    for mp, arrs in zip(pl.parts, up.zarrs):
+        c, v, rows = arrs["coords"], arrs["values"], arrs["rows"]
+        mode, P, R_pad = mp.mode, mp.P, mp.R_pad
+        R = P * R_pad
+        E = int(rows.shape[0])
+        per_row = torch.bincount(rows.long(), minlength=R)
+        hub_row = int(per_row.argmax())
+        got = ops.penultimate_sorted(c, v, rows, factors, mode, R)
+        again = ops.penultimate_sorted(c, v, rows, factors, mode, R)
+        want = torch.zeros(got.shape, dtype=torch.float64, device=dev)
+        for lo in range(0, E, HUB_CHUNK):
+            sl = slice(lo, min(E, lo + HUB_CHUNK))
+            a, b = ops._split_ab(c[sl], v[sl], factors, mode)
+            want += ref.kron_segsum_ref(rows[sl], a, b, R)
+            del a, b
+        want = want.float()
+        errs["kron_segsum"] = max(errs["kron_segsum"], check(
+            f"reselect plan mode {mode}: gather kron_segsum E={E} "
+            f"(P={P} x E_pad {mp.E_pad}) rows={R} K={got.shape[1]}, hub "
+            f"row {hub_row} holds {int(per_row[hub_row])} elements",
+            got, want, again))
+        x = torch.randn(got.shape[1], device=dev, generator=g)
+        y = torch.randn((P, R_pad), device=dev, generator=g)
+        want_x, want_y = ref.oracle_pair_ref(got, x, y, P)
+        for name, fn, w in (
+                ("Z@x", lambda: oracle_pair(got, x, None)[0], want_x),
+                ("stacked Z^T@y", lambda: oracle_pair(got, None, y, P)[1],
+                 want_y)):
+            errs["oracle_pair"] = max(errs["oracle_pair"], check(
+                f"reselect plan mode {mode}: oracle_pair {name} rows={R} "
+                f"K={got.shape[1]} P={P}", fn(), w, fn()))
+        del got, again, want, per_row
+        torch.cuda.empty_cache()
+    return errs
 
 
 def phase_dist_sketch(t) -> dict:
@@ -1672,17 +1960,27 @@ def main() -> int:
     phase_capture_bitwise(t, dist["plan"])
     calibration = phase_reuse_profile_and_calibration(t, dist["plan"])
     stoch = phase_stochastic(t, dist["plan"], dist["factors"], dist["fit"])
-    # the single-process phases run with nothing of the distributed ones
-    # resident: the plan (cached here and in the plan cache), its uploads
-    # and graphs, and the shared executor's refine snapshots
+
+    def release(before: str) -> None:
+        # nothing of the phases before stays resident: their plans (held
+        # by the caller and the plan cache), uploads and graphs, and the
+        # shared executor's refine snapshots
+        plan_cache_clear()
+        executor._SHARED.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"resident before {before}: "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+
     del dist["factors"], dist["plan"]
-    plan_cache_clear()
-    executor._SHARED.clear()
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"resident before the single-process phases: "
-        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
-        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+    release("the scheduler ladder")
+    ladder = phase_scheduler(t, stoch)
+    for name, err in ladder["hub"].items():
+        errs[name] = max(errs[name], err)
+    log(f"seed append {ladder['seed_append_s']:.3f} s; later appends "
+        f"{[round(x, 3) for x in ladder['append_s']]} s")
+    release("the single-process phases")
 
     main = phase_main_path(t)
     phase_small_checks()
@@ -1706,6 +2004,9 @@ def main() -> int:
         f"{dist_sketch['steady_s']:.4f}, liteopt rerun on the cached plan "
         f"{dist['runs']['captured']['steady_s']:.4f}; refines "
         + ", ".join(f"{r['wall_s']:.4f}" for r in stoch["refines"])
+        + "; scheduler rungs (run_s) "
+        + ", ".join(f"{r['decision']} {r['run_s']:.4f}"
+                    for r in ladder["rungs"])
         + f"; precision='auto' after calibration: {calibration['auto']}")
     dist_sweeps = len(run["stats"].fits)
     by_path = {
@@ -1718,6 +2019,7 @@ def main() -> int:
                "dist_captured": dist["runs"]["captured"]["launches"][name],
                "dist_replayed_profiled": dist_replayed["launches"][name],
                "stochastic_refine": stoch["refines"][1]["launches"][name],
+               "scheduler_ladder": ladder["launches"][name],
                "hooi_completion": objectives["completion"]["launches"][name],
                "hooi_nn": objectives["nn"]["launches"][name]}
         for name in ("kron_segsum", "kron_segsum_oracle", "oracle_pair")}
@@ -1748,6 +2050,11 @@ def main() -> int:
             "replaces": replaces, "launches": run["launches"][name],
             "launches_per_sweep": run["launches"][name] / dist_sweeps,
             "launches_by_path": by_path[name],
+            # the scheduler ladder's wrapper launches, by group of rungs
+            # (a reuse rung is submitted behind the rung before it)
+            "launches_by_rung": {
+                "+".join(str(k) for k in g["rungs"]): g[name]
+                for g in ladder["launches_by_group"]},
             # executions on the card, read from the profiler, in a replayed
             # invocation and a cached refine (the wrappers' counts there
             # are in launches_by_path)

@@ -1,9 +1,10 @@
 """Sparse tensor container in coordinate (COO) format.
 
 The port's own copy of the reference's host-side ``SparseTensor``
-(``src/repro/core/coo.py``), limited to what the port's paths use.
-It stays in numpy: generation and validation are host work, and the device
-copies are made at the entry point (``repro_torch.convert.device_coords``).
+(``src/repro/core/coo.py``), limited to what the port's paths use, with
+the FROSTT ``.tns`` reader and writer. It stays in numpy: generation and
+validation are host work, and the device copies are made at the entry point
+(``repro_torch.convert.device_coords``).
 A mode-n *slice* is the set of elements sharing the n-th coordinate.
 """
 
@@ -14,7 +15,7 @@ import hashlib
 
 import numpy as np
 
-__all__ = ["SparseTensor"]
+__all__ = ["SparseTensor", "read_tns", "write_tns"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +79,12 @@ class SparseTensor:
         order = np.argsort(self.coords[:, mode], kind="stable")
         return SparseTensor(self.coords[order], self.values[order], self.shape)
 
+    def permute_mode(self, mode: int, perm: np.ndarray) -> "SparseTensor":
+        """Relabel mode-n indices: new coordinate = perm[old coordinate]."""
+        coords = self.coords.copy()
+        coords[:, mode] = np.asarray(perm)[coords[:, mode]]
+        return SparseTensor(coords, self.values, self.shape)
+
     def todense(self) -> np.ndarray:
         """Materialize as a dense numpy array (tests / small tensors only)."""
         total = int(np.prod(self.shape))
@@ -122,3 +129,20 @@ class SparseTensor:
 
     def take(self, idx: np.ndarray) -> "SparseTensor":
         return SparseTensor(self.coords[idx], self.values[idx], self.shape)
+
+
+# ------------------------------------------------------------------ FROSTT IO
+def read_tns(path: str) -> SparseTensor:
+    """Read a FROSTT ``.tns`` file (1-based coords, whitespace separated)."""
+    rows = np.loadtxt(path, dtype=np.float64, ndmin=2, comments=("#", "%"))
+    coords = rows[:, :-1].astype(np.int64) - 1
+    values = rows[:, -1]
+    shape = tuple(int(coords[:, n].max()) + 1 for n in range(coords.shape[1]))
+    return SparseTensor(coords, values, shape)
+
+
+def write_tns(path: str, t: SparseTensor) -> None:
+    with open(path, "w") as f:
+        for c, v in zip(t.coords, t.values):
+            f.write(" ".join(str(int(x) + 1) for x in c)
+                    + f" {float(v)!r}\n")

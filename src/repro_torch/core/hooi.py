@@ -173,10 +173,16 @@ def fit_score(t: SparseTensor, dec: Decomposition) -> float:
     """Fit = 1 - ||T - Z||_F / ||T||_F.
 
     With orthonormal factors and core = T x_n F_n^T, ||T - Z||^2 =
-    ||T||^2 - ||G||^2, so no reconstruction is materialized (``t`` must be
-    duplicate-free, as ``synth_tensor`` and ``dedup`` make it).
+    ||T||^2 - ||G||^2, so no reconstruction is materialized.
+
+    ``sum(values**2)`` equals ||T||^2 only for duplicate-free COO; a tensor
+    carrying duplicate coordinates (a stream's value updates, see
+    ``repro_torch.streaming``) provides the true norm as ``_true_norm2``
+    and it takes precedence, as in the reference.
     """
-    t_norm2 = float(np.sum(t.values**2))
+    true_norm2 = getattr(t, "_true_norm2", None)
+    t_norm2 = float(true_norm2) if true_norm2 is not None \
+        else float(np.sum(t.values**2))
     g_norm2 = float(torch.sum(dec.core**2))
     err2 = max(t_norm2 - g_norm2, 0.0)
     return 1.0 - float(np.sqrt(err2) / (np.sqrt(t_norm2) + 1e-30))

@@ -12,7 +12,8 @@ factor-matrix transfer volume (uni- and multi-policy), FLOP counts and the
 memory model of §7.3.
 
 The port's own copy of the reference's ``core/metrics.py`` (pure numpy),
-without the streaming ``MetricsExtender`` (ROADMAP Queue A item 12).
+with the streaming ``MetricsExtender``, which keeps the metrics of a
+repartitioned stream up to date in O(batch).
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ from typing import Sequence
 import numpy as np
 
 from .coo import SparseTensor
-from .distribution import Scheme
+from .distribution import Scheme, row_owner_map
 
-__all__ = ["ModeMetrics", "SchemeMetrics", "mode_metrics", "scheme_metrics"]
+__all__ = ["ModeMetrics", "SchemeMetrics", "mode_metrics", "scheme_metrics",
+           "MetricsExtender"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,8 +142,6 @@ def _fm_volume(t: SparseTensor, scheme: Scheme, core: Sequence[int]) -> int:
     we charge (|need(l)| - 1) rows of K_n entries, clamped at >= 0, using the
     best case that the owner is itself a needer.
     """
-    from .distribution import row_owner_map
-
     total = 0
     N = t.ndim
     for n in range(N):
@@ -213,3 +213,184 @@ def scheme_metrics(
         ttm_flops_max=int(ttm_max),
         svd_flops_max=int(svd_max),
     )
+
+
+class MetricsExtender:
+    """Incrementally maintained ``SchemeMetrics`` under streaming appends.
+
+    A full ``scheme_metrics`` recompute is O(nnz * N^2) host work — paid on
+    every batch, it would defeat the streaming scheduler's "repartition is
+    O(batch)" contract. This class pays that cost *once* (at plan adoption)
+    to build per-mode incremental state, then ``extend`` folds a batch of
+    appended elements in O(batch * N^2) and returns metrics **identical** to
+    a from-scratch recompute on the extended scheme (same tie-breaks, same
+    integer arithmetic — asserted by the equivalence test).
+
+    Per-mode state and how each §4 quantity extends:
+
+      * element counts per rank  -> E_max   (bincount of the new policy tail)
+      * (slice, rank) pair counts -> R_sum/R_max (a pair new to the dict
+        means that rank shares one more distinct slice)
+      * per-slice nnz            -> L_nonempty (0 -> positive transitions)
+      * live ``row_owner_map`` argmax: the owner of slice l is the rank with
+        the lexicographically greatest (count, rank) among sharers — counts
+        only grow, so the argmax can only move to a pair the batch touched
+      * fm need-set (slice*P + rank pairs over policies j != n) plus a
+        per-slice "owner is a needer" flag -> fm_volume; only slices touched
+        by the batch can change their flag, so the update stays O(batch).
+
+    Duplicate coordinates count as distinct elements, exactly as
+    ``scheme_metrics`` counts them (streaming value-updates append dups).
+    """
+
+    def __init__(self, t: SparseTensor, scheme: Scheme,
+                 core: Sequence[int],
+                 lanczos_queries: Sequence[int] | None = None):
+        N = t.ndim
+        P = scheme.P
+        self.P = P
+        self.shape = tuple(t.shape)
+        self.core = tuple(int(k) for k in core)
+        self.name = scheme.name
+        if lanczos_queries is None:
+            lanczos_queries = [4 * self.core[n] for n in range(N)]
+        self.queries = tuple(int(q) for q in lanczos_queries)
+        self.nnz = t.nnz
+        coords = np.asarray(t.coords)
+        self._e_per_rank = []
+        self._r_per_rank = []
+        self._pair_counts: list[dict] = []
+        self._owner = []
+        self._slice_nnz = []
+        self._L_ne = []
+        self._fm_pairs: list[set] = []
+        self._hit_flags = []
+        self._fm_hits = []
+        for n in range(N):
+            pol = np.asarray(scheme.policy(n))
+            slc = coords[:, n].astype(np.int64)
+            self._e_per_rank.append(np.bincount(pol, minlength=P)
+                                    .astype(np.int64))
+            pair = slc * P + pol
+            uniq, counts = np.unique(pair, return_counts=True)
+            self._pair_counts.append(
+                dict(zip(uniq.tolist(), counts.tolist())))
+            self._r_per_rank.append(
+                np.bincount((uniq % P).astype(np.int64), minlength=P)
+                .astype(np.int64))
+            self._owner.append(row_owner_map(t, pol, n, P))
+            snnz = np.bincount(slc, minlength=t.shape[n]).astype(np.int64)
+            self._slice_nnz.append(snnz)
+            self._L_ne.append(int((snnz > 0).sum()))
+            need = [slc * P + np.asarray(scheme.policy(j))
+                    for j in range(N) if j != n]
+            fm = np.unique(np.concatenate(need)) if need else \
+                np.zeros(0, np.int64)
+            self._fm_pairs.append(set(fm.tolist()))
+            L = t.shape[n]
+            key = np.arange(L, dtype=np.int64) * P + self._owner[n]
+            flags = np.isin(key, fm)
+            self._hit_flags.append(flags)
+            self._fm_hits.append(int(flags.sum()))
+
+    def extend(self, new_coords: np.ndarray, scheme: Scheme) -> SchemeMetrics:
+        """Fold ``new_coords`` into the state; ``scheme`` is the *extended*
+        scheme (``extend_scheme`` output — its policy tails carry the batch's
+        rank assignments). Returns the metrics of the extended state."""
+        new_coords = np.asarray(new_coords)
+        B = len(new_coords)
+        N = len(self.shape)
+        P = self.P
+        for n in range(N):
+            pol_full = np.asarray(scheme.policy(n))
+            if len(pol_full) != self.nnz + B:
+                raise ValueError(
+                    f"mode {n} policy has {len(pol_full)} entries, expected "
+                    f"{self.nnz} tracked + {B} appended — scheme is not the "
+                    "extension of the tracked state")
+            tail = pol_full[self.nnz:].astype(np.int64)
+            slc = new_coords[:, n].astype(np.int64)
+            self._e_per_rank[n] += np.bincount(tail, minlength=P)
+            # distinct (slice, rank) pairs: dict miss -> R grows
+            pair = slc * P + tail
+            puniq, pcnt = np.unique(pair, return_counts=True)
+            pc = self._pair_counts[n]
+            for p, c in zip(puniq.tolist(), pcnt.tolist()):
+                old = pc.get(p, 0)
+                if old == 0:
+                    self._r_per_rank[n][p % P] += 1
+                pc[p] = old + c
+                # live owner argmax: (count, rank) lexicographic, exactly
+                # row_owner_map's sort-and-keep-last tie-break
+                l, r = p // P, p % P
+                o = int(self._owner[n][l])
+                if o < 0 or (old + c, r) > (int(pc.get(l * P + o, 0)), o):
+                    self._owner[n][l] = r
+            snnz = self._slice_nnz[n]
+            suniq, scnt = np.unique(slc, return_counts=True)
+            self._L_ne[n] += int((snnz[suniq] == 0).sum())
+            snnz[suniq] += scnt
+            # fm need-set: this element's row must reach its ranks under
+            # every other mode's policy
+            fm = self._fm_pairs[n]
+            for j in range(N):
+                if j == n:
+                    continue
+                tj = np.asarray(scheme.policy(j))[self.nnz:].astype(np.int64)
+                fm.update((slc * P + tj).tolist())
+            # re-derive the "owner is a needer" flag for touched slices only
+            for l in suniq.tolist():
+                new_flag = (l * P + int(self._owner[n][l])) in fm
+                if new_flag != bool(self._hit_flags[n][l]):
+                    self._fm_hits[n] += 1 if new_flag else -1
+                    self._hit_flags[n][l] = new_flag
+        self.nnz += B
+        return self.metrics()
+
+    def metrics(self) -> SchemeMetrics:
+        """Assemble ``SchemeMetrics`` from the tracked state — the same
+        arithmetic as ``scheme_metrics``, fed from incremental counters."""
+        N = len(self.shape)
+        per_mode = []
+        for n in range(N):
+            e = self._e_per_rank[n]
+            r = self._r_per_rank[n]
+            per_mode.append(ModeMetrics(
+                mode=n,
+                P=self.P,
+                nnz=self.nnz,
+                L=self.shape[n],
+                L_nonempty=self._L_ne[n],
+                E_max=int(e.max()) if len(e) else 0,
+                E_avg=self.nnz / self.P,
+                R_sum=int(r.sum()),
+                R_max=int(r.max()) if len(r) else 0,
+                R_avg=float(r.sum()) / self.P,
+            ))
+        core = self.core
+        khat = [int(np.prod([core[j] for j in range(N) if j != n]))
+                for n in range(N)]
+        ttm = ttm_max = svd = svd_max = 0
+        for n in range(N):
+            m = per_mode[n]
+            ttm += 2 * self.nnz * khat[n]
+            ttm_max += 2 * m.E_max * khat[n]
+            q = self.queries[n]
+            svd += q * m.R_sum * khat[n] * 2
+            svd_max += q * m.R_max * khat[n] * 2
+        svd_vol = sum(self.queries[n] * per_mode[n].oracle_comm_per_query()
+                      for n in range(N))
+        fm_vol = sum((len(self._fm_pairs[n]) - self._fm_hits[n]) * core[n]
+                     for n in range(N))
+        return SchemeMetrics(
+            scheme=self.name,
+            P=self.P,
+            per_mode=tuple(per_mode),
+            core_dims=core,
+            fm_volume=int(fm_vol),
+            svd_volume=int(svd_vol),
+            ttm_flops=int(ttm),
+            svd_flops=int(svd),
+            ttm_flops_max=int(ttm_max),
+            svd_flops_max=int(svd_max),
+        )

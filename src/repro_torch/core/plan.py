@@ -19,8 +19,12 @@ to what the distributed main path uses:
     (a file either package writes loads in the other) and is validated
     against the tensor's fingerprint and the objective on load.
 
-The streaming helpers (``extend_scheme``, ``refresh_decision``,
-``rescore_plan``) are ROADMAP Queue A item 12.
+  * the streaming helpers the scheduler's refresh ladder runs on:
+    ``slice_owner_maps`` (slice -> rank under an adopted plan),
+    ``extend_scheme`` (policies extended to appended elements in
+    O(batch)), ``stochastic_refine_seconds`` and ``refresh_decision``
+    (the §4 drift test that picks the rung) and ``rescore_plan`` (new core
+    dims on the same partitions).
 """
 
 from __future__ import annotations
@@ -33,9 +37,9 @@ from typing import Sequence
 
 import numpy as np
 
-from .calibrate import current_cost_model_state
+from .calibrate import current_cost_model, current_cost_model_state
 from .coo import SparseTensor
-from .distribution import Scheme, build_scheme
+from .distribution import Scheme, build_scheme, row_owner_map
 from .metrics import ModeMetrics, SchemeMetrics, scheme_metrics
 
 __all__ = [
@@ -47,6 +51,11 @@ __all__ = [
     "plan_cache_stats",
     "plan_cache_clear",
     "last_plan_call_cache_hit",
+    "slice_owner_maps",
+    "extend_scheme",
+    "stochastic_refine_seconds",
+    "refresh_decision",
+    "rescore_plan",
 ]
 
 # Candidates for real-time selection: the schemes whose construction is cheap
@@ -443,7 +452,7 @@ def plan(
     ``metrics`` (prebuilt-``Scheme`` path only) supplies precomputed
     ``SchemeMetrics``, skipping the O(nnz·N²) recompute — the streaming
     scheduler maintains them incrementally across appends
-    (the reference's ``MetricsExtender``, not ported yet).
+    (``core.metrics.MetricsExtender``).
     """
     if path not in ("baseline", "liteopt", "auto"):
         raise ValueError(f"unknown path {path!r}")
@@ -508,6 +517,173 @@ def plan(
                            model, pad_geometric, objective=obj)
 
     return _cached(key, use_cache, make)
+
+
+# --------------------------------------------------- streaming invalidation
+def slice_owner_maps(pl: PartitionPlan, t: SparseTensor
+                     ) -> tuple[np.ndarray, ...]:
+    """Per-mode slice -> rank maps implied by the plan's policies on ``t``.
+
+    ``t`` must be the snapshot the plan was partitioned from (policies are
+    per-element). The maps cover every slice — empty slices get round-robin
+    owners, the same convention ``row_owner_map`` uses for factor rows — so
+    an appended element always has a well-defined rank. Computed once when
+    a plan is adopted for a stream (O(nnz·N)); after that the scheduler
+    tracks per-rank loads in O(batch) per append.
+    """
+    if pl.fingerprint is not None and pl.fingerprint != t.fingerprint():
+        raise ValueError("owner maps need the snapshot the plan was built "
+                         f"from (plan {pl.fingerprint[:12]}…, tensor "
+                         f"{t.fingerprint()[:12]}…)")
+    return tuple(row_owner_map(t, pl.scheme.policy(n), n, pl.P)
+                 for n in range(pl.nmodes))
+
+
+def extend_scheme(scheme: Scheme, owner_maps: Sequence[np.ndarray],
+                  new_coords: np.ndarray) -> Scheme:
+    """Cheap per-mode repartition: extend policies to appended elements.
+
+    Existing element assignments are untouched (their device placement
+    stays stable); each appended element joins, per mode, the rank that
+    owns its slice under ``owner_maps``. This is O(batch) host work versus
+    a full scheme (re)construction — the streaming analogue of the paper's
+    "distribution step cheaper than one HOOI iteration" claim. The result
+    is multi-policy even if the source was uni-policy (owner maps differ
+    per mode).
+    """
+    new_coords = np.asarray(new_coords)
+    policies = tuple(
+        np.concatenate([
+            scheme.policy(n),
+            np.asarray(owner_maps[n])[new_coords[:, n]].astype(np.int32),
+        ])
+        for n in range(scheme.nmodes)
+    )
+    return Scheme(name=scheme.name, policies=policies, uni=False, P=scheme.P)
+
+
+def stochastic_refine_seconds(pl: PartitionPlan, sampled_nnz: int,
+                              total_nnz: int, model=None) -> float:
+    """Modeled seconds for one stochastic-refine pass under this plan.
+
+    The minibatch step does the same per-element Z-build/oracle work as a
+    full sweep over ``sampled_nnz / total_nnz`` of the elements, times the
+    model's ``sampled_pass_overhead`` (single-device execution, full-
+    snapshot fit accounting, pow2 padding — everything a full sweep
+    amortizes). Scaling the plan's own ``cost.total_s`` keeps the
+    comparison apples-to-apples: both sides are scored by the same
+    calibrated model, so the *ratio* is what decides the rung.
+    """
+    if model is None:
+        model = current_cost_model()
+    frac = min(max(float(sampled_nnz) / max(float(total_nnz), 1.0), 0.0), 1.0)
+    overhead = float(getattr(model, "sampled_pass_overhead", 2.0))
+    return frac * overhead * float(pl.cost.total_s)
+
+
+def refresh_decision(pl: PartitionPlan, mode_loads: Sequence[np.ndarray],
+                     *, tol: float = 0.25,
+                     baseline: Sequence[float] | None = None,
+                     stochastic: dict | None = None
+                     ) -> tuple[str, dict]:
+    """Is the plan's scheme still good for the grown element distribution?
+
+    ``mode_loads``: per-mode per-rank element counts after projecting the
+    appended coordinates onto the plan's slice owner maps. The drift signal
+    is the §4 Metric-1 load imbalance (E_max / E_avg) this plan *would*
+    have, compared against the imbalance it was selected at: within
+    ``tol`` relative slack the scheme is kept and only the partitions are
+    rebuilt (``"repartition"``, via ``extend_scheme``); beyond it the
+    appends have skewed some mode enough that the real-time selector should
+    rerun (``"reselect"``).
+
+    ``baseline`` overrides the per-mode comparison imbalances. Callers that
+    refresh a plan repeatedly (the scheduler) must pin the baseline to the
+    *selection-time* values: ``pl`` is replaced on every repartition, so
+    re-deriving the baseline from it would ratchet — a stream skewing a
+    little per batch would never cross the tolerance. Defaults to ``pl``'s
+    own metrics (correct for a one-shot check).
+
+    ``stochastic`` opts the ladder's fourth rung in: a dict with
+    ``sampled_nnz`` and ``total_nnz`` (the minibatch the caller *would*
+    run), optional ``tol`` (drift ceiling for sampling, default ``tol/2``)
+    and ``model`` (CostModel). When the worst drift ratio is within the
+    stochastic tolerance **and** the modeled sampled pass is cheaper than
+    the plan's full-sweep cost (``stochastic_refine_seconds``), the
+    decision is ``"stochastic-refine"`` — keep the adopted plan untouched
+    and update factors from the sampled minibatch only. The ladder is
+    monotone in drift by construction: stochastic-refine below
+    ``1 + stoch_tol``, repartition up to ``1 + tol``, reselect beyond.
+
+    Returns ``(decision, drift)`` where drift maps mode -> {imbalance,
+    baseline, ratio} plus ``"worst"`` — surfaced in ``DistHooiStats``.
+    When the stochastic rung was evaluated, drift also carries
+    ``"stochastic_s"`` / ``"full_sweep_s"`` (the modeled costs).
+    """
+    drift: dict = {}
+    worst = 0.0
+    for n, loads in enumerate(mode_loads):
+        loads = np.asarray(loads, dtype=np.float64)
+        total = float(loads.sum())
+        imb = float(loads.max() * len(loads) / total) if total else 1.0
+        if baseline is not None:
+            base = max(float(baseline[n]), 1.0)
+        else:
+            base = max(float(pl.metrics.per_mode[n].ttm_imbalance), 1.0)
+        ratio = imb / base
+        worst = max(worst, ratio)
+        drift[n] = {"imbalance": imb, "baseline": base, "ratio": ratio}
+    drift["worst"] = worst
+    if worst > 1.0 + tol:
+        return "reselect", drift
+    if stochastic is not None:
+        stoch_tol = float(stochastic.get("tol", tol / 2.0))
+        stoch_s = stochastic_refine_seconds(
+            pl, stochastic["sampled_nnz"], stochastic["total_nnz"],
+            stochastic.get("model"))
+        drift["stochastic_s"] = stoch_s
+        drift["full_sweep_s"] = float(pl.cost.total_s)
+        if worst <= 1.0 + stoch_tol and stoch_s < float(pl.cost.total_s):
+            return "stochastic-refine", drift
+    return "repartition", drift
+
+
+def rescore_plan(pl: PartitionPlan, t: SparseTensor,
+                 core_dims: Sequence[int], *,
+                 objective=None) -> PartitionPlan:
+    """Re-score a plan for new ``core_dims`` without repartitioning.
+
+    The adaptive-rank policy changes a mode's ``K_n`` mid-stream; the
+    partitions (element placement, padded shapes) do not depend on the
+    core dims, so the plan's device arrays stay valid — only the §4
+    metrics and the modeled cost are rank-parameterized. The returned plan
+    is a ``dataclasses.replace`` copy sharing the **same** ``parts`` tuple,
+    which is exactly what the executor's upload cache dedupes on
+    (``_uploads_by_parts[id(parts)]``): running the rescored plan uploads
+    nothing and compiles only the genuinely-new ``niter``/``K_n`` steps.
+
+    ``t`` must be the (objective-prepared) snapshot the plan was built
+    from — metrics are recomputed against its element distribution.
+    """
+    from repro_torch.engine.objective import resolve_objective
+
+    obj = resolve_objective(objective if objective is not None
+                            else pl.objective)
+    t = obj.prepare_tensor(t)
+    if pl.fingerprint is not None and pl.fingerprint != t.fingerprint():
+        raise ValueError("rescore needs the snapshot the plan was built "
+                         f"from (plan {pl.fingerprint[:12]}…, tensor "
+                         f"{t.fingerprint()[:12]}…)")
+    core = tuple(int(k) for k in core_dims)
+    if len(core) != pl.nmodes:
+        raise ValueError(
+            f"core_dims has {len(core)} entries for {pl.nmodes} modes")
+    model, _ = current_cost_model_state()
+    metrics = scheme_metrics(t, pl.scheme, core)
+    cost = _plan_cost(pl.parts, metrics, core, pl.cost.path, model,
+                      objective=obj)
+    return dataclasses.replace(pl, metrics=metrics, cost=cost,
+                               core_dims=core, cache_key=None)
 
 
 def _cached(key: tuple, use_cache: bool, make) -> PartitionPlan:

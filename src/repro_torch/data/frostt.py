@@ -11,10 +11,13 @@ value, ``#``/``%`` comment lines allowed.
   coordinate.
 * ``iter_tns_batches`` — a generator of bounded COO batches that never
   materializes the whole file.
+* ``stream_tns`` — builds a ``StreamingTensor`` by appending those batches
+  in file order (with ``shape=None`` an extra pass infers the extent
+  first: a stream's shape is fixed at birth). The result drops straight
+  into ``StreamScheduler.submit``.
 
-``stream_tns`` needs the streaming tensor, which comes with the scheduler
-(ROADMAP Queue A item 12). Values are kept as written (float64); duplicate
-coordinates are preserved.
+Values are kept as written (float64); duplicate coordinates are preserved
+(under streaming semantics they are value updates).
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from typing import Iterator
 import numpy as np
 
 from repro_torch.core.coo import SparseTensor
+from repro_torch.streaming import StreamingTensor
 
-__all__ = ["load_tns", "iter_tns_batches"]
+__all__ = ["load_tns", "iter_tns_batches", "stream_tns"]
 
 _COMMENTS = ("#", "%")
 
@@ -103,3 +107,30 @@ def iter_tns_batches(path, batch_nnz: int = 100_000
     if pending:
         coords, values, _ = _parse_lines(pending, ndim)
         yield coords, values
+
+
+def stream_tns(path, batch_nnz: int = 100_000,
+               shape: tuple[int, ...] | None = None,
+               name: str | None = None) -> StreamingTensor:
+    """Materialize a ``.tns`` file as a ``StreamingTensor``, batch by batch.
+
+    With ``shape=None`` an extra pass over the file infers the dense extent
+    first. Each batch is one ``append``, so a scheduler consuming the
+    stream sees the version-by-version growth a live ingest would produce.
+    """
+    if shape is None:
+        hi = None
+        for coords, _ in iter_tns_batches(path, batch_nnz):
+            if len(coords) == 0:
+                continue
+            m = coords.max(axis=0)
+            hi = m if hi is None else np.maximum(hi, m)
+        if hi is None:
+            raise ValueError(f"{path}: no elements found")
+        shape = tuple(int(x) + 1 for x in hi)
+    if name is None:
+        name = str(path)
+    stream = StreamingTensor(shape, name=name)
+    for coords, values in iter_tns_batches(path, batch_nnz):
+        stream.append(coords, values)
+    return stream

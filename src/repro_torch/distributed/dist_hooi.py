@@ -43,6 +43,7 @@ def dist_hooi(
     lanczos_block: int | None = None,
     fused_zbuild: bool | None = None,
     warm_start: str | None = None,
+    pad_geometric: bool = False,
     objective=None,
     *,
     device: str | torch.device | None = None,
@@ -58,7 +59,9 @@ def dist_hooi(
     schemes. ``path`` selects the comm backend family (``"baseline"`` ->
     psum, ``"liteopt"`` -> boundary, ``"auto"`` -> per mode; P=1 always
     runs ``local``, the same engine instantiation as ``hooi``). The other
-    knobs are ``HooiExecutor.run``'s. ``executor`` overrides
+    knobs are ``HooiExecutor.run``'s (``pad_geometric`` quantizes the
+    partition pads to powers of two, part of the plan-cache key, as the
+    scheduler's streaming plans are built). ``executor`` overrides
     ``shared_executor(P_ranks, device)``; ``init`` passes initial factors
     (coerced to ``core_dims``), ``draw`` the random-draw seam,
     ``on_sweep(it, seconds, fit)`` observes every sweep.
@@ -72,4 +75,5 @@ def dist_hooi(
                   use_fused_oracle=use_fused_oracle, precision=precision,
                   lanczos_block=lanczos_block, fused_zbuild=fused_zbuild,
                   warm_start=warm_start, init_factors=init,
-                  objective=objective, draw=draw, on_sweep=on_sweep)
+                  pad_geometric=pad_geometric, objective=objective,
+                  draw=draw, on_sweep=on_sweep)

@@ -142,6 +142,23 @@ class DistHooiStats:
     * ``sample_fraction``/``sample_nnz``/``replay_nnz``/``step_size`` — the
       stochastic rung only: the fraction sampled, the sampled new elements,
       the replayed prefix elements and the blend step ``eta`` applied.
+
+    Set by ``engine.scheduler.StreamScheduler`` (None or 0 outside it):
+
+    * ``stream_decision``/``stream_drift`` — the refresh ladder's rung
+      (``"plan"``, ``"reuse"``, ``"stochastic-refine"``, ``"repartition"``,
+      ``"reselect"``) and the §4 drift that picked it
+      (``refresh_decision``'s report);
+    * ``prepare_s`` — the producer's host seconds (snapshot, decision,
+      plan, upload staging), overlapped with earlier sweeps; ``run_s`` —
+      the consumer's seconds in ``run``/``run_stochastic``;
+      ``queue_wait_s`` — submit to sweep start, less ``prepare_s``;
+    * ``fit_delta`` — a refine's final fit less the last full run's;
+    * ``rank_trajectory`` — adaptive rank's trace for the stream
+      (``{"stream_version", "core_dims", "modeled_total_s"}`` per run);
+    * ``slo_deadline_s``/``slo_met`` — the submit's latency budget and
+      whether submit to result met it;
+    * ``lane`` — the scheduler's lane label.
     """
 
     fits: list
@@ -177,6 +194,16 @@ class DistHooiStats:
     sample_nnz: int | None = None
     replay_nnz: int | None = None
     step_size: float | None = None
+    stream_decision: str | None = None
+    stream_drift: dict | None = None
+    prepare_s: float = 0.0
+    run_s: float = 0.0
+    queue_wait_s: float = 0.0
+    fit_delta: float | None = None
+    rank_trajectory: list | None = None
+    slo_deadline_s: float | None = None
+    slo_met: bool | None = None
+    lane: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)

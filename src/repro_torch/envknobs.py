@@ -1,18 +1,18 @@
 """The ``REPRO_*`` environment knobs the port reads.
 
 The port's own copy of the reference's parsing (``repro/envknobs.py``),
-limited to the knobs the single-process slice consults: an unset or empty
-variable means "no override", and a malformed value raises ``ValueError``
-naming the variable.
+limited to the knobs the port consults (``KNOBS`` lists them): an unset or
+empty variable means "no override", and a malformed value raises
+``ValueError`` naming the variable.
 """
 
 from __future__ import annotations
 
 import os
 
-__all__ = ["PRECISIONS", "OBJECTIVES", "WARM_STARTS", "env_flag",
+__all__ = ["PRECISIONS", "OBJECTIVES", "WARM_STARTS", "KNOBS", "env_flag",
            "fused_zbuild", "precision", "lanczos_block", "objective",
-           "warm_start"]
+           "warm_start", "sample_fraction"]
 
 PRECISIONS = ("f32", "bf16")
 OBJECTIVES = ("tucker", "completion", "nn")
@@ -76,3 +76,33 @@ def objective() -> str | None:
 def warm_start() -> str | None:
     """``REPRO_WARM_START``: default oracle warm-start mode, or None."""
     return _choice("REPRO_WARM_START", WARM_STARTS)
+
+
+def sample_fraction() -> float | None:
+    """``REPRO_SAMPLE_FRACTION``: default stochastic-refine sample
+    fraction for the streaming scheduler, or None (rung disabled)."""
+    raw = _raw("REPRO_SAMPLE_FRACTION")
+    if not raw:
+        return None
+    try:
+        value = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"REPRO_SAMPLE_FRACTION must be a float in (0, 1], "
+            f"got {raw!r}") from None
+    if not 0.0 < value <= 1.0:
+        raise ValueError(
+            f"REPRO_SAMPLE_FRACTION must be in (0, 1], got {value}")
+    return value
+
+
+# the registry: variable name -> zero-arg validated parser (the reference's
+# TPU-only REPRO_FORCE_KERNEL and REPRO_VMEM_BUDGET are not ported)
+KNOBS = {
+    "REPRO_FUSED_ZBUILD": fused_zbuild,
+    "REPRO_PRECISION": precision,
+    "REPRO_LANCZOS_BLOCK": lanczos_block,
+    "REPRO_OBJECTIVE": objective,
+    "REPRO_WARM_START": warm_start,
+    "REPRO_SAMPLE_FRACTION": sample_fraction,
+}

@@ -609,3 +609,154 @@ def test_run_stochastic_on_card(cuda):
                zip(again_dec.factors, dec.factors))
     _, cpu = HooiExecutor(4, "cpu").run_stochastic(t, core, pl, **kw)
     np.testing.assert_allclose(st.fits, cpu.fits, rtol=0, atol=1e-4)
+
+
+
+def _scheduler_ladder(ex, t, core):
+    """plan -> reuse -> stochastic-refine -> repartition -> reuse ->
+    reselect through a ``StreamScheduler`` on ``ex``, at chip_smoke's
+    knobs; returns the results."""
+    from repro_torch.engine.scheduler import StreamScheduler
+    from repro_torch.streaming import StreamingTensor
+
+    stream = StreamingTensor.from_tensor(t, name="ladder")
+    r = np.random.default_rng(1)
+    new = synth_tensor(t.shape, t.nnz // 100, alphas=(1.1, 1.0, 0.9),
+                       seed=5)
+    updates = t.coords[r.integers(0, t.nnz, t.nnz // 100)]
+    hub = np.tile(t.coords[0], (int(0.18 * t.nnz), 1))
+    appends = [None, None, (new.coords, new.values),
+               (updates, r.standard_normal(len(updates))), None,
+               (hub, r.standard_normal(len(hub)))]
+    out = []
+    with StreamScheduler(ex, core, n_invocations=2, scheme="lite",
+                         path="auto", sample_fraction=0.25, sample_seed=7,
+                         replay_nnz=256, correction_every=2,
+                         use_fused_oracle=True) as sched:
+        for seed, batch in enumerate(appends):
+            if batch is not None:
+                stream.append(*batch)
+            out.append(sched.submit(stream, seed=seed).result())
+    return out
+
+
+def test_scheduler_ladder_on_card(cuda, monkeypatch):
+    """The refresh ladder on the card: the CPU's decisions and drifts at
+    every rung, and the CPU's fits within 1e-4 at the plan rung (the later
+    rungs start from the factors the rung before carried, which the card
+    and the CPU round differently, so they are held to the card's own
+    reruns instead); the plan rung bitwise a direct run on its plan and
+    seed; each reuse captures, compiles and uploads nothing; every capture
+    made by the scheduler's consumer thread (on the legacy default stream)
+    runs on the executor's own stream; a second ladder from the same state
+    gives the same bits, its refine included."""
+    import threading
+
+    from repro_torch.graphs import StepGraph
+    from repro_torch.streaming import StreamingTensor
+
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    core = (5, 5, 5)
+    captures = []
+    original = StepGraph.capture.__func__
+
+    def spy(cls, home, fn, arrs, factors, key):
+        seen = []
+
+        def step(a, f, k):
+            seen.append(torch.cuda.current_stream(home.device))
+            return fn(a, f, k)
+
+        out = original(cls, home, step, arrs, factors, key)
+        captures.append((threading.current_thread().name,
+                         torch.cuda.current_stream(home.device), home.stream,
+                         seen))
+        return out
+
+    monkeypatch.setattr(StepGraph, "capture", classmethod(spy))
+    ex = HooiExecutor(4)
+    got = _scheduler_ladder(ex, t, core)
+    assert [r.decision for r in got] == [
+        "plan", "reuse", "stochastic-refine", "repartition", "reuse",
+        "reselect"]
+    assert captures
+    for thread, caller, own, seen in captures:
+        assert thread.startswith("sched-run")
+        assert caller == torch.cuda.default_stream(cuda)
+        assert seen and all(s == own for s in seen)
+    for r in (got[1], got[4]):
+        assert (r.stats.step_compilations, r.stats.step_captures,
+                r.stats.uploads, r.stats.graph_replays) == (0, 0, 0, 6)
+    assert got[3].stats.step_compilations == 0  # geometric pads survived
+    snap = StreamingTensor.from_tensor(t, name="ladder").snapshot()
+    _, direct = ex.run(snap, core, got[0].plan, n_invocations=2,
+                       path="auto", seed=0, use_fused_oracle=True)
+    assert direct.uploads == 0 and direct.fits == got[0].fits
+    cpu = _scheduler_ladder(HooiExecutor(4, "cpu"), t, core)
+    for g, c in zip(got, cpu, strict=True):
+        assert g.decision == c.decision and g.drift == c.drift
+    np.testing.assert_allclose(got[0].fits, cpu[0].fits, rtol=0, atol=1e-4)
+    again = _scheduler_ladder(ex, t, core)
+    for a, g in zip(again, got, strict=True):
+        assert a.decision == g.decision and a.fits == g.fits
+        assert all(torch.equal(x, y) for x, y in
+                   zip(a.decomposition.factors, g.decomposition.factors))
+
+
+def test_producer_staging_during_a_capture(cuda, monkeypatch):
+    """A producer thread stages a second stream's plan through pinned
+    memory while the consumer is inside a capture (forced: each waits for
+    the other). The capture survives and does not record the staging: the
+    staged plan then runs with no upload and gives the bits of a fresh
+    executor's run, and the captured stream's reuse replays the bits of
+    its first run."""
+    import threading
+
+    from repro_torch.engine.scheduler import StreamScheduler
+    from repro_torch.graphs import StepGraph
+    from repro_torch.streaming import StreamingTensor
+
+    ta = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    tb = synth_tensor((50, 40, 30), 15_000, alphas=(1.0, 1.0, 1.0), seed=4)
+    core = (5, 5, 5)
+    sa = StreamingTensor.from_tensor(ta, name="a")
+    sb = StreamingTensor.from_tensor(tb, name="b")
+    capturing, staged = threading.Event(), threading.Event()
+    original = StepGraph.capture.__func__
+
+    def capture(cls, home, fn, arrs, factors, key):
+        def step(a, f, k):
+            if torch.cuda.is_current_stream_capturing() \
+                    and not capturing.is_set():
+                capturing.set()
+                assert staged.wait(60), "the producer never staged"
+            return fn(a, f, k)
+
+        return original(cls, home, step, arrs, factors, key)
+
+    ex = HooiExecutor(4)
+    stage = ex.stage_upload
+
+    def stage_upload(pl, t):
+        if t.fingerprint() == sb.fingerprint() and not staged.is_set():
+            assert capturing.wait(60), "the consumer never captured"
+            try:
+                return stage(pl, t)
+            finally:
+                staged.set()
+        return stage(pl, t)
+
+    monkeypatch.setattr(StepGraph, "capture", classmethod(capture))
+    monkeypatch.setattr(ex, "stage_upload", stage_upload)
+    with StreamScheduler(ex, core, n_invocations=2, scheme="lite",
+                         workers=2) as sched:
+        fa = sched.submit(sa, seed=0)
+        fb = sched.submit(sb, seed=1)
+        ra, rb = fa.result(), fb.result()
+        again = sched.submit(sa, seed=0).result()
+    assert capturing.is_set() and staged.is_set()
+    assert rb.stats.uploads == 0 and rb.stats.upload_cache_hit
+    _, fresh = HooiExecutor(4).run(sb.snapshot(), core, rb.plan,
+                                   n_invocations=2, seed=1)
+    assert rb.fits == fresh.fits
+    assert again.decision == "reuse" and again.fits == ra.fits

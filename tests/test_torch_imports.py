@@ -37,6 +37,12 @@ def test_every_port_module_imports():
     assert len(list(_modules())) >= 20
 
 
+def test_streaming_and_scheduler_are_covered():
+    mods = set(_modules())
+    assert {"repro_torch.streaming", "repro_torch.engine.scheduler",
+            "repro_torch.data.frostt"} <= mods
+
+
 def test_port_import_leaves_jax_and_repro_unloaded():
     mods = ", ".join(repr(m) for m in _modules())
     code = (
