@@ -101,13 +101,32 @@ Phases, each fatal on failure (nothing is caught):
     replays and fits, then ``scheduler.stats()``, the appends' seconds and
     the host's peak RSS; then, on the reselect plan's stacked partitions
     (E_pad 2^25 per rank, the hub batch's elements in a few rows of every
-    mode, the largest row's count logged), the gather-form ``kron_segsum`` against its plain version (summed in
-    element chunks) and ``oracle_pair`` on that Z against its plain
-    version, each rerun bitwise.
+    mode, the largest row's count logged), the gather-form ``kron_segsum``
+    against its plain version (summed in element chunks) and
+    ``oracle_pair`` on that Z against its plain version, each rerun
+    bitwise; the stream and the reselect plan (``PartitionPlan.save``
+    bytes) go on to phase 17;
+17. ``ExecutorPool(device_count, 4, CORE, scheme="lite", path="auto",
+    pad_geometric=True, n_invocations=3, use_fused_oracle=True)`` behind
+    ``StreamRouter(pool, max_pending=4)``, one lane per card:
+    ``device_slices`` refuses too many lanes and two lanes on one card;
+    the reselect plan loaded against the stream's snapshot and adopted by
+    lane 0, whose first interactive submit is a ``reuse`` with 0 uploads
+    (its fits bitwise a direct run on the plan and seed), a sticky
+    resubmit with 0 compilations, captures and uploads; admission behind
+    an interactive nell-2 run in flight (the ``serve_pool`` example's
+    small batch one-shots: one admitted, then ``PoolSaturated``; an
+    interactive one still admitted); one SLO missed (1 ms) and four met;
+    ``drain()`` in submission order, ``stats()`` the lanes' sums,
+    ``backlog_s`` back to 0, ``reroute`` refused on one lane; the current
+    CUDA device inside every lane run; no lane thread left after
+    ``close()``; per submit the decision, lane, stage seconds,
+    compilations, captures and uploads, and the launch counts and peak
+    memory of the phase.
 
-The distributed phases (7, 8, 9, 13, 14, 15, 16) run right after the kernel
-checks (3); when the run is late, the single-process paths are cut to one
-invocation (never their shape).
+The distributed phases (7, 8, 9, 13, 14, 15, 16, 17) run right after the
+kernel checks (3); when the run is late, the single-process paths are cut
+to one invocation (never their shape).
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit line, and as the last line ``{"ok": true, "device": {...}}``. Without
@@ -117,6 +136,7 @@ CUDA it exits non-zero before printing any result.
 from __future__ import annotations
 
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -1443,6 +1463,17 @@ def phase_scheduler(t, stoch: dict) -> dict:
         + ", ".join(f"{r['wall_s']:.4f}" for r in cached)
         + f" s, its host pass over the values {stoch['norm2_s']:.4f} s")
     out["hub"] = _hub_checks(ex, rungs[5]["plan"], rungs[5]["factors"])
+    # the stream and the reselect plan go on to the pool phase, the plan as
+    # the bytes a router's reroute would carry (no third Lite build there)
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    rungs[5]["plan"].save(buf)
+    out["plan_bytes"] = buf.getvalue()
+    del buf
+    log(f"reselect plan saved: {len(out['plan_bytes'])} bytes in "
+        f"{time.perf_counter() - t0:.3f} s (uncompressed); "
+        + zlib_rate(rungs[5]["plan"], len(out["plan_bytes"])))
+    out["stream"] = stream
     # the ladder's plans (and with them their uploads) go now; the plan
     # cache held the repartition's and the reselect's
     for r in rungs:
@@ -1453,6 +1484,26 @@ def phase_scheduler(t, stoch: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+ZLIB_SAMPLE = 1 << 22  # elements of a plan's arrays timed under zlib
+
+
+def zlib_rate(pl, total: int) -> str:
+    """What a compressed ``save`` (``np.savez_compressed``, the
+    reference's plan file format) would cost: zlib timed over the first ``ZLIB_SAMPLE`` padded
+    elements of mode 0's arrays, scaled to the plan's ``total`` bytes."""
+    mp = pl.parts[0]
+    sample = {"coords": mp.coords.reshape(-1, mp.N)[:ZLIB_SAMPLE],
+              "values": mp.values.reshape(-1)[:ZLIB_SAMPLE],
+              "local_rows": mp.local_rows.reshape(-1)[:ZLIB_SAMPLE]}
+    nbytes = sum(a.nbytes for a in sample.values())
+    t0 = time.perf_counter()
+    np.savez_compressed(io.BytesIO(), **sample)
+    rate = nbytes / (time.perf_counter() - t0)
+    return (f"zlib over {nbytes} bytes of its mode-0 arrays ran at "
+            f"{rate / 1e6:.1f} MB/s, so a compressed save would take about "
+            f"{total / rate:.0f} s")
 
 
 def _ladder_rung(res) -> dict:
@@ -1550,6 +1601,266 @@ def _hub_checks(ex, pl, factors) -> dict:
         del got, again, want, per_row
         torch.cuda.empty_cache()
     return errs
+
+
+POOL_MAX_PENDING = 4  # the bounded queue: batch may fill 0.5 x 4 = 2
+POOL_DEADLINE_S = 600.0  # a generous SLO
+POOL_TIGHT_S = 0.001  # an SLO no run can meet
+POOL_BATCH = ((80, 70, 60), 3_000)  # the serve_pool example's one-shots
+LANE_THREADS = ("sched-prepare", "sched-run")
+
+
+def _pool_submit_line(label: str, res) -> dict:
+    """Log one pool result (decision, lane, stage seconds, what it built
+    and moved) and check its fits."""
+    st = res.stats
+    log(f"pool {label}: decision={res.decision} lane={st.lane} "
+        f"prepare_s={res.prepare_s:.4f} run_s={res.run_s:.4f} "
+        f"queue_wait_s={res.queue_wait_s:.4f} "
+        f"step_compilations={st.step_compilations} "
+        f"step_captures={st.step_captures} uploads={st.uploads} "
+        f"graph_replays={st.graph_replays} slo_met={res.slo_met} "
+        f"fits={st.fits}")
+    check_fits(st.fits, f"pool {label}")
+    return {"label": label, "decision": res.decision, "lane": st.lane,
+            "prepare_s": res.prepare_s, "run_s": res.run_s,
+            "queue_wait_s": res.queue_wait_s,
+            "compilations": st.step_compilations,
+            "captures": st.step_captures, "uploads": st.uploads,
+            "slo_met": res.slo_met}
+
+
+def _lane_threads() -> list:
+    import threading
+
+    return [th.name for th in threading.enumerate()
+            if th.is_alive() and th.name.startswith(LANE_THREADS)]
+
+
+def phase_pool(ladder: dict) -> dict:
+    """``ExecutorPool`` and ``StreamRouter`` over every card, P = 4 ranks
+    stacked on each lane's device, at nell-2 size, each check fatal:
+
+    1. ``device_slices`` refuses one lane more than there are cards, and
+       ``["cuda", "cuda:0"]`` (the same card); every lane's executor is on
+       its own ``cuda:i``;
+    2. the ladder's reselect plan, loaded from its saved bytes against the
+       stream's snapshot (the fingerprint checked), adopted by lane 0; the
+       first interactive submit is a ``reuse`` on lane 0 with 0 uploads
+       (adopt staged them), its steps built and captured on the fresh
+       executor; a direct ``run`` on the same plan and seed gives its fits
+       bitwise (the ladder's rung started from carried factors);
+    3. a sticky resubmit: lane 0, ``reuse``, 0 compilations, captures,
+       uploads;
+    4. admission: behind an interactive nell-2 submit in flight, the first
+       small batch one-shot is admitted, the next are refused with
+       ``PoolSaturated`` at once, an interactive one is still admitted;
+    5. the SLO: the 1 ms deadline is missed, the generous ones met;
+    6. ``drain()`` in submission order, ``stats()`` the lanes' sums,
+       ``backlog_s`` back to 0, ``reroute`` on a one-lane pool refused
+       (on several cards: a warm-start reroute, ``reuse``, 0 uploads);
+    7. inside every lane run the current CUDA device is the lane's;
+    8. after ``router.close()`` no lane thread is alive.
+    """
+    import torch
+    from repro_torch.engine import ExecutorPool, StreamRouter, device_slices
+
+    count = torch.cuda.device_count()
+    for devs, n in ((None, count + 1), (["cuda", "cuda:0"], 2)):
+        try:
+            device_slices(n, DIST_P, devices=devs)
+        except ValueError as e:
+            log(f"device_slices({n}, {DIST_P}, devices={devs}) refused: {e}")
+        else:
+            raise AssertionError(f"device_slices({n}, {DIST_P}, "
+                                 f"devices={devs}) was not refused")
+    stream = ladder.pop("stream")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pool = ExecutorPool(count, DIST_P, CORE, scheme="lite", path="auto",
+                        pad_geometric=True, n_invocations=DIST_INVOCATIONS,
+                        use_fused_oracle=True, workers=2)
+    router = StreamRouter(pool, max_pending=POOL_MAX_PENDING)
+    out = {}
+    lanes_devices = [lane.executor.device for lane in pool.lanes]
+    log(f"pool: {pool.n_lanes} lanes, executors on {lanes_devices}")
+    if lanes_devices != [torch.device("cuda", i) for i in range(count)]:
+        raise AssertionError(f"lane executors on {lanes_devices}")
+    # every step a lane runs records the current device (check 7)
+    seen = {i: set() for i in range(pool.n_lanes)}
+    for lane in pool.lanes:
+        def call_step(*a, _real=lane.executor._call_step, _i=lane.index):
+            seen[_i].add(torch.cuda.current_device())
+            return _real(*a)
+        lane.executor._call_step = call_step
+    try:
+        out.update(_pool_checks(pool, router, stream, ladder, seen))
+    finally:
+        router.close()
+        for lane in pool.lanes:
+            del lane.executor._call_step
+    left = _lane_threads()
+    log(f"after router.close(): lane threads alive {left}")
+    if left:
+        raise AssertionError(f"lane threads left after close: {left}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"pool phase peak device memory {out['peak_gib']:.3f} GiB")
+    del pool, router
+    return out
+
+
+def _pool_checks(pool, router, stream, ladder, seen) -> dict:
+    import torch
+    from repro_torch.core.plan import PartitionPlan
+    from repro_torch.data.tensors import synth_tensor
+    from repro_torch.engine import PoolSaturated
+
+    out = {"submits": []}
+    lane0 = pool.lane(0)
+    snap = stream.snapshot()
+    t0 = time.perf_counter()
+    pl = PartitionPlan.load(io.BytesIO(ladder.pop("plan_bytes")), snap)
+    out["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adopted = lane0.scheduler.adopt(stream, pl)
+    out["adopt_s"] = time.perf_counter() - t0
+    log(f"warm start: PartitionPlan.load against the {snap.nnz}-element "
+        f"snapshot (fingerprint checked) {out['load_s']:.3f} s; lane 0 "
+        f"adopt (stages the uploads) {out['adopt_s']:.3f} s -> {adopted}")
+    if not adopted:
+        raise AssertionError("lane 0 refused the ladder's reselect plan")
+    futs = []
+
+    def submit(label, src, **kw):
+        fut = router.submit(src, **kw)
+        futs.append((label, fut))
+        return fut
+
+    seed = 5  # the ladder's reselect rung's
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    first = submit("warm start", stream, seed=seed, priority="interactive",
+                   deadline_s=POOL_DEADLINE_S).result()
+    out["warm_launches"] = launch_counts()
+    rec = _pool_submit_line("warm start", first)
+    out["submits"].append(rec)
+    log(f"launches in the warm-started run: {out['warm_launches']}")
+    if (rec["decision"], rec["lane"], rec["uploads"]) != ("reuse", 0, 0) \
+            or first.plan is not pl:
+        raise AssertionError(f"warm start: {rec}")
+    sticky = submit("sticky resubmit", stream, seed=seed + 1,
+                    priority="interactive",
+                    deadline_s=POOL_DEADLINE_S).result()
+    rec = _pool_submit_line("sticky resubmit", sticky)
+    out["submits"].append(rec)
+    if (rec["decision"], rec["lane"], rec["compilations"], rec["captures"],
+            rec["uploads"]) != ("reuse", 0, 0, 0, 0):
+        raise AssertionError(f"sticky resubmit: {rec}")
+    # admission: the batch share is 0.5 x 4 = 2 of the bounded queue
+    batch = [synth_tensor(POOL_BATCH[0], POOL_BATCH[1], seed=50 + s)
+             for s in range(3)]
+    small = synth_tensor(POOL_BATCH[0], POOL_BATCH[1], seed=60)
+    busy = submit("in flight", stream, seed=seed + 2, priority="interactive",
+                  deadline_s=POOL_DEADLINE_S)
+    admitted, refused = [], []
+    for s, bt in enumerate(batch):
+        t0 = time.perf_counter()
+        try:
+            submit(f"batch {s}", bt, name=f"batch-{s}", priority="batch",
+                   deadline_s=POOL_DEADLINE_S)
+            admitted.append(s)
+        except PoolSaturated as e:
+            refused.append((s, (time.perf_counter() - t0) * 1e6, str(e)))
+    submit("interactive tight", small, name="tight", priority="interactive",
+           deadline_s=POOL_TIGHT_S)
+    in_flight = busy.done()
+    for s, us, msg in refused:
+        log(f"batch {s} refused in {us:.1f} us: {msg}")
+    log(f"admission: batch admitted {admitted}, refused "
+        f"{[s for s, _, _ in refused]}; an interactive submit admitted "
+        f"behind them; the nell-2 run done by then: {in_flight}")
+    if admitted != [0] or [s for s, _, _ in refused] != [1, 2] \
+            or in_flight:
+        raise AssertionError(f"admission: batch admitted {admitted}, "
+                             f"refused {refused}, nell-2 done {in_flight}")
+    out["refused_us"] = [us for _, us, _ in refused]
+
+    drained = router.drain()
+    if [id(r) for r in drained] != [id(f.result()) for _, f in futs]:
+        raise AssertionError("drain() is not in submission order")
+    for (label, _), res in zip(futs[2:], drained[2:]):
+        out["submits"].append(_pool_submit_line(label, res))
+    end = time.monotonic() + 30
+    while router.pending() and time.monotonic() < end:
+        time.sleep(0.01)
+    st = router.stats()
+    slo = [r.slo_met for r in drained]
+    log(f"router.stats(): submitted={st.submitted} completed="
+        f"{st.completed} failed={st.failed} slo_hit={st.slo_hit} "
+        f"slo_miss={st.slo_miss} rejected={st.rejected} "
+        f"rejected_by_priority={st.rejected_by_priority} rerouted="
+        f"{st.rerouted} backlog_s={st.backlog_s} decisions={st.decisions} "
+        f"host_s={st.host_s:.4f} device_s={st.device_s:.4f} "
+        f"queue_wait_s={st.queue_wait_s:.4f}; slo_met by submit {slo}")
+    if slo != [True, True, True, True, False]:
+        raise AssertionError(f"slo_met {slo}")
+    lanes = [lane.scheduler.stats() for lane in pool.lanes]
+    for k in ("submitted", "completed", "failed", "slo_hit", "slo_miss"):
+        if getattr(st, k) != sum(ls[k] for ls in lanes):
+            raise AssertionError(f"router.stats().{k} is not the lanes' sum")
+    if (st.submitted, st.completed, st.failed, st.slo_hit, st.slo_miss) \
+            != (5, 5, 0, 4, 1) or st.rejected_by_priority != {"batch": 2}:
+        raise AssertionError(f"router stats {st}")
+    if any(abs(b) > 1e-12 for b in st.backlog_s):
+        raise AssertionError(f"backlog_s {st.backlog_s} after the drain")
+    out["stats"] = {k: getattr(st, k) for k in (
+        "submitted", "completed", "failed", "slo_hit", "slo_miss",
+        "rejected_by_priority", "decisions", "host_s", "device_s",
+        "queue_wait_s")}
+    if pool.n_lanes == 1:
+        try:
+            router.reroute(stream)
+        except ValueError as e:
+            log(f"reroute on a one-lane pool refused: {e!r}")
+        else:
+            raise AssertionError("reroute on a one-lane pool moved")
+    else:
+        lane = router.reroute(stream)
+        res = router.submit(stream, seed=seed,
+                            priority="interactive").result()
+        rec = _pool_submit_line(f"rerouted to lane {lane}", res)
+        out["submits"].append(rec)
+        if (rec["decision"], rec["lane"], rec["uploads"]) != \
+                ("reuse", lane, 0):
+            raise AssertionError(f"reroute: {rec}")
+    out["launches"] = launch_counts()
+    log(f"launches over the pool phase: {out['launches']}; current devices "
+        f"seen inside lane runs {seen}")
+    for i, devs in seen.items():
+        if devs - {i} or (i == 0 and not devs):
+            raise AssertionError(f"lane {i} ran steps with current device "
+                                 f"{devs}")
+    for name in ("kron_segsum", "oracle_pair"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the pool path")
+    # the lanes are idle: a direct run on lane 0's executor, same plan and
+    # seed, after the pool path's counts were read (it skips the router)
+    _, direct = lane0.executor.run(snap, CORE, pl,
+                                   n_invocations=DIST_INVOCATIONS,
+                                   path="auto", seed=seed,
+                                   use_fused_oracle=True)
+    reselect = ladder["rungs"][5]
+    log(f"warm-start fits {first.stats.fits}; direct run on lane 0, same "
+        f"plan and seed: {direct.fits}; the ladder's reselect rung (same "
+        f"plan bytes and seed, started from the factors the ladder "
+        f"carried, init_factors): {reselect['fits']}")
+    if direct.fits != first.stats.fits:
+        raise AssertionError("the warm-started run is not bitwise a direct "
+                             "run on the same plan and seed")
+    out["fits"] = {"warm_start": list(first.stats.fits),
+                   "direct": list(direct.fits),
+                   "ladder_reselect": reselect["fits"]}
+    return out
 
 
 def phase_dist_sketch(t) -> dict:
@@ -1980,6 +2291,8 @@ def main() -> int:
         errs[name] = max(errs[name], err)
     log(f"seed append {ladder['seed_append_s']:.3f} s; later appends "
         f"{[round(x, 3) for x in ladder['append_s']]} s")
+    release("the pool phase")
+    pool = phase_pool(ladder)
     release("the single-process phases")
 
     main = phase_main_path(t)
@@ -2020,6 +2333,7 @@ def main() -> int:
                "dist_replayed_profiled": dist_replayed["launches"][name],
                "stochastic_refine": stoch["refines"][1]["launches"][name],
                "scheduler_ladder": ladder["launches"][name],
+               "pool_router": pool["launches"][name],
                "hooi_completion": objectives["completion"]["launches"][name],
                "hooi_nn": objectives["nn"]["launches"][name]}
         for name in ("kron_segsum", "kron_segsum_oracle", "oracle_pair")}

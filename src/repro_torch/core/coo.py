@@ -66,6 +66,15 @@ class SparseTensor:
     def nnz(self) -> int:
         return int(self.coords.shape[0])
 
+    @property
+    def sparsity(self) -> float:
+        total = float(np.prod([float(L) for L in self.shape]))
+        return self.nnz / total if total else 0.0
+
+    def __repr__(self) -> str:
+        return (f"SparseTensor(shape={self.shape}, nnz={self.nnz}, "
+                f"sparsity={self.sparsity:.2e})")
+
     def slice_sizes(self, mode: int) -> np.ndarray:
         """Cardinality |Slice_n^l| for every l in [0, L_n)."""
         return np.bincount(self.coords[:, mode], minlength=self.shape[mode])

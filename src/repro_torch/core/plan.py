@@ -155,6 +155,9 @@ class PartitionPlan:
         Stores the scheme policies, every padded ``ModePartition`` array, the
         §4 metrics, the modeled cost, the objective and the source tensor's
         fingerprint. ``path`` is a filename or a binary file-like object.
+        The arrays are stored uncompressed (``np.savez``; the reference
+        compresses, and ``load`` reads both): zlib over a large plan's
+        arrays costs more than the plan build a warm start saves.
         """
         if self.fingerprint is None:
             raise ValueError(
@@ -191,8 +194,7 @@ class PartitionPlan:
             "pad_geometric": self.pad_geometric,
             "objective": self.objective,
         }
-        np.savez_compressed(path, __meta__=np.array(json.dumps(meta)),
-                            **arrays)
+        np.savez(path, __meta__=np.array(json.dumps(meta)), **arrays)
 
     @classmethod
     def load(cls, path, t: SparseTensor, objective=None) -> "PartitionPlan":

@@ -8,9 +8,12 @@ if they were the card's.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
-__all__ = ["resolve_device", "full_precision_matmul"]
+__all__ = ["resolve_device", "full_precision_matmul", "on_own_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -35,3 +38,22 @@ def full_precision_matmul() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def on_own_device(method):
+    """Run a method of an object with a ``device`` under that device.
+
+    The kernels launch through ``ctypes`` on the current CUDA device's
+    context, and captures, events and pinned copies bind to it as well, so
+    work for ``cuda:1`` issued from a thread whose current device is
+    ``cuda:0`` (every new thread starts there) would go to the wrong card.
+    Off CUDA the method runs as it is.
+    """
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        dev = self.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            return method(self, *args, **kwargs)
+
+    return run

@@ -59,7 +59,8 @@ from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, sketch_block_size,
 from repro_torch.core.stochastic import (blend_factor, next_pow2,
                                          sample_batch, step_eta)
 from repro_torch.core.ttm import core_from_factors
-from repro_torch.device import full_precision_matmul, resolve_device
+from repro_torch.device import (full_precision_matmul, on_own_device,
+                                resolve_device)
 from repro_torch.engine.comm import (backend_comm_bytes, comm_maps,
                                      resolve_backend)
 from repro_torch.engine.objective import resolve_objective
@@ -235,6 +236,10 @@ class _PlanUpload:
     n_arrays: int
     graphs: dict = dataclasses.field(default_factory=dict)
 
+    def tensors(self) -> list:
+        return [*(a for m in self.arrs for a in m.values()),
+                *self.row_perms, self.coords, self.values]
+
 
 @dataclasses.dataclass(eq=False)
 class _StochUpload:
@@ -246,6 +251,21 @@ class _StochUpload:
     n_arrays: int
     graphs: dict = dataclasses.field(default_factory=dict)
 
+    def tensors(self) -> list:
+        return [*self.arrs.values(), self.coords, self.values]
+
+
+def _read_here(up):
+    """Mark an upload's arrays as read on the current stream, and return
+    it. They are blocks of their uploader's stream, whose cache may hand a
+    block out again as soon as it is freed; ``record_stream`` makes that
+    wait for the work queued here. Off CUDA: nothing."""
+    if up.coords.is_cuda:
+        stream = torch.cuda.current_stream(up.coords.device)
+        for a in up.tensors():
+            a.record_stream(stream)
+    return up
+
 
 _STAGE_BYTES = 1 << 24  # one pinned staging buffer (two alternate)
 
@@ -253,8 +273,10 @@ _STAGE_BYTES = 1 << 24  # one pinned staging buffer (two alternate)
 class _Uploader:
     """Host arrays to the executor's device. On the card: through two
     pinned staging buffers, on a stream of its own, waited for by
-    ``finish`` (so the arrays are ready for every stream and thread); on
-    the CPU, wrapped in place. ``count`` is the arrays put."""
+    ``finish`` (so the arrays are ready for every stream and thread), into
+    blocks of that stream's cache (so no work queued on another stream can
+    still be using them; the readers mark them, ``_read_here``); on the
+    CPU, wrapped in place. ``count`` is the arrays put."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
@@ -271,7 +293,8 @@ class _Uploader:
         self.count += 1
         if self.dev.type != "cuda":
             return src.to(self.dev)
-        out = torch.empty(src.shape, dtype=src.dtype, device=self.dev)
+        with torch.cuda.stream(self.stream):
+            out = torch.empty(src.shape, dtype=src.dtype, device=self.dev)
         s, d = src.reshape(-1).view(torch.uint8), \
             out.reshape(-1).view(torch.uint8)
         for lo in range(0, s.numel(), _STAGE_BYTES):
@@ -574,7 +597,7 @@ class HooiExecutor:
             if up is not None:
                 self._stats["upload_cache_hits"] += 1
                 tally["upload_cache_hits"] += 1
-                return up
+                return _read_here(up)
         mover = _Uploader(self.device)
         arrs = tuple(upload_mode(mp, self.device, mover.put)
                      for mp in pl.parts)
@@ -595,9 +618,10 @@ class HooiExecutor:
             # the setdefault loser still moved its arrays: count them
             self._stats["uploads"] += up.n_arrays
             tally["uploads"] += up.n_arrays
-        return won
+        return _read_here(won)
 
     # ------------------------------------------------------------ staging
+    @on_own_device
     def stage_upload(self, pl: PartitionPlan, t: SparseTensor) -> dict:
         """Put a plan's arrays on the device now, off the hot path.
 
@@ -611,6 +635,7 @@ class HooiExecutor:
         return {"uploads": tally["uploads"],
                 "already_resident": tally["upload_cache_hits"] > 0}
 
+    @on_own_device
     def prepare(
         self,
         t: SparseTensor,
@@ -655,6 +680,7 @@ class HooiExecutor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @on_own_device
     def profile_phases(
         self,
         t: SparseTensor,
@@ -762,6 +788,7 @@ class HooiExecutor:
                 "z_kernel": {n: on_card for n in range(N)}}
 
     # ---------------------------------------------------------------- run
+    @on_own_device
     def run(
         self,
         t: SparseTensor,
@@ -975,7 +1002,7 @@ class HooiExecutor:
                 self._stoch_uploads.move_to_end(ukey)
                 self._stats["upload_cache_hits"] += 1
                 tally["upload_cache_hits"] += 1
-                return up
+                return _read_here(up)
         mover = _Uploader(self.device)
         arrs = {"coords": mover.put(sb.coords, np.int32),
                 "values": mover.put(sb.values, np.float32)}
@@ -991,8 +1018,9 @@ class HooiExecutor:
                 self._stoch_uploads.popitem(last=False)
             self._stats["uploads"] += up.n_arrays
             tally["uploads"] += up.n_arrays
-        return won
+        return _read_here(won)
 
+    @on_own_device
     def run_stochastic(
         self,
         t: SparseTensor,

@@ -12,6 +12,9 @@ atomics and cuBLAS's reductions), so results agree to f32 rounding relative
 to the largest output, 2e-4 of it; reruns of a kernel are bitwise equal.
 """
 
+import contextlib
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -760,3 +763,163 @@ def test_producer_staging_during_a_capture(cuda, monkeypatch):
                                    n_invocations=2, seed=1)
     assert rb.fits == fresh.fits
     assert again.decision == "reuse" and again.fits == ra.fits
+
+
+def test_pool_on_card(cuda, monkeypatch):
+    """``ExecutorPool`` and ``StreamRouter`` on the card at a small size:
+    one lane per CUDA device, each executor on its own ``cuda:i``; a plan
+    carried as save bytes, loaded and adopted by lane 0 gives a ``reuse``
+    with 0 uploads (its steps captured on the fresh executor), a resubmit
+    0/0/0 with the same bits; behind a held run the batch share is
+    refused while an interactive submit is admitted; the backlog returns
+    to 0; inside every lane run the current device is the lane's; no lane
+    thread is left after ``close()``."""
+    import io
+    import threading
+
+    import _chaos
+    from repro_torch.core.plan import PartitionPlan
+    from repro_torch.engine import ExecutorPool, PoolSaturated, StreamRouter
+    from repro_torch.streaming import StreamingTensor
+
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    core = (5, 5, 5)
+    stream = StreamingTensor.from_tensor(t, name="s")
+    snap = stream.snapshot()
+    pl = port_plan.plan(snap, "lite", 4, core_dims=core, path="auto",
+                        pad_geometric=True, use_cache=False)
+    buf = io.BytesIO()
+    pl.save(buf)
+    count = torch.cuda.device_count()
+    seen = []
+    with ExecutorPool(count, 4, core, scheme="lite", path="auto",
+                      pad_geometric=True, n_invocations=2,
+                      use_fused_oracle=True) as pool:
+        assert [lane.executor.device for lane in pool.lanes] == [
+            torch.device("cuda", i) for i in range(count)]
+        for lane in pool.lanes:
+            def call_step(*a, _real=lane.executor._call_step,
+                          _i=lane.index):
+                seen.append((_i, torch.cuda.current_device()))
+                return _real(*a)
+            monkeypatch.setattr(lane.executor, "_call_step", call_step)
+        router = StreamRouter(pool, max_pending=4)
+        loaded = PartitionPlan.load(io.BytesIO(buf.getvalue()), snap)
+        assert pool.lane(0).scheduler.adopt(stream, loaded)
+        first = router.submit(stream, seed=0,
+                              priority="interactive").result()
+        assert (first.decision, first.stats.lane, first.stats.uploads) == \
+            ("reuse", 0, 0)
+        assert first.plan is loaded and first.stats.step_captures == 3
+        again = router.submit(stream, seed=0,
+                              priority="interactive").result()
+        assert (again.decision, again.stats.lane,
+                again.stats.step_compilations, again.stats.step_captures,
+                again.stats.uploads) == ("reuse", 0, 0, 0, 0)
+        assert again.fits == first.fits
+
+        held = synth_tensor((40, 30, 20), 3_000, seed=9)
+        small = [synth_tensor((40, 30, 20), 3_000, seed=10 + s)
+                 for s in range(3)]
+        gate = threading.Event()
+        fault = _chaos.FaultPlan().at(held.fingerprint(), "run",
+                                      _chaos.hold(gate))
+        with contextlib.ExitStack() as stack:
+            for lane in pool.lanes:
+                stack.enter_context(_chaos.inject(lane.executor, fault))
+            try:
+                router.submit(held, priority="interactive")
+                router.submit(small[0], priority="batch")
+                with pytest.raises(PoolSaturated) as exc:
+                    router.submit(small[1], priority="batch")
+                assert (exc.value.pending, exc.value.limit) == (2, 2)
+                router.submit(small[2], priority="interactive",
+                              deadline_s=120.0)
+                assert router.pending() == 3
+            finally:
+                gate.set()
+            res = router.drain()
+        assert [r.decision for r in res] == ["reuse", "reuse", "plan",
+                                             "plan", "plan"]
+        deadline = time.monotonic() + 30
+        while router.pending() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        st = router.stats()
+        assert st.rejected_by_priority == {"batch": 1}
+        assert (st.submitted, st.completed, st.failed) == (5, 5, 0)
+        assert st.backlog_s == pytest.approx((0.0,) * count, abs=1e-12)
+        if count == 1:
+            with pytest.raises(ValueError):
+                router.reroute(stream)
+        router.close()
+    assert seen and all(i == dev for i, dev in seen)
+    assert not [th for th in threading.enumerate()
+                if th.name.startswith(("sched-prepare", "sched-run"))]
+
+
+def _load_queued_kernels(dev, n: int) -> None:
+    """Launch once, at the tests' size, the kernels the upload tests queue:
+    a kernel's first launch loads its module, which may wait for the
+    device and so run the queued work before the upload it is to race."""
+    torch.cuda._sleep(1)
+    torch.empty(n, dtype=torch.int64, device=dev).fill_(7)
+    x = torch.ones(n, device=dev)
+    x.sum() + x.sum()
+    torch.cuda.synchronize()
+
+
+def test_upload_waits_for_work_queued_on_its_block(cuda):
+    """Work still queued on the current stream over a block just freed
+    there (as a sweep on the consumer thread leaves it while a producer
+    stages the next plan) must not land on the uploaded values: an
+    upload's device array is a block of its uploader's stream's cache."""
+    n = 1 << 20
+    # the uploader first: allocating its pinned staging buffers may wait
+    # for the device, which would run the queued write before the put
+    up = exmod._Uploader(cuda)
+    want = np.arange(n, dtype=np.int64)
+    _load_queued_kernels(cuda, n)
+    old = torch.empty(n, dtype=torch.int64, device=cuda)
+    torch.cuda._sleep(200_000_000)  # queue the write well behind the put
+    old.fill_(7)
+    del old  # the block is free while the fill still waits to run
+    got = up.put(want)
+    up.finish()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_upload_freed_under_queued_reads_is_not_reused(cuda):
+    """An upload's arrays are blocks of its uploader's stream; a read still
+    queued on the reading stream when the upload is freed (a sweep in
+    flight while its plan's arrays go) sees their values, not the next
+    upload's, since the reader marked them (``_read_here``)."""
+    n = 1 << 20
+    up = exmod._Uploader(cuda)
+    ones = np.ones(n, dtype=np.float32)
+    held = exmod._StochUpload(arrs={}, coords=up.put(ones),
+                              values=up.put(ones), n_arrays=2)
+    up.finish()
+    assert exmod._read_here(held) is held
+    _load_queued_kernels(cuda, n)
+    torch.cuda._sleep(200_000_000)  # queue the reads well behind the puts
+    total = held.coords.sum() + held.values.sum()
+    del held  # the blocks are free while the reads still wait to run
+    for _ in range(2):
+        up.put(np.zeros(n, dtype=np.float32))
+    up.finish()
+    torch.cuda.synchronize()
+    assert total.item() == 2 * n
+
+
+def test_upload_does_not_wait_for_the_current_stream(cuda):
+    """A producer staging a plan while a sweep is queued on the current
+    stream holds neither its copies nor the host behind that sweep."""
+    up = exmod._Uploader(cuda)  # its pinned buffers first (may wait)
+    want = np.arange(1 << 20, dtype=np.int64)
+    _load_queued_kernels(cuda, want.size)
+    torch.cuda._sleep(2_000_000_000)  # about a second of queued work
+    got = up.put(want)
+    up.finish()
+    assert not torch.cuda.current_stream(cuda).query()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -13,6 +13,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
@@ -41,6 +42,44 @@ def test_streaming_and_scheduler_are_covered():
     mods = set(_modules())
     assert {"repro_torch.streaming", "repro_torch.engine.scheduler",
             "repro_torch.data.frostt"} <= mods
+
+
+def test_pool_router_and_examples_are_covered():
+    """The serving tier and the example twins are among the modules the
+    import checks above load without ``jax``/``repro``."""
+    mods = set(_modules())
+    assert {"repro_torch.engine.pool", "repro_torch.engine.router",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.tucker_compress",
+            "repro_torch.examples.complete_masked",
+            "repro_torch.examples.serve_pool"} <= mods
+    from repro_torch import engine
+
+    assert {"ExecutorPool", "PoolLane", "PoolStats", "device_slices",
+            "PoolSaturated", "StreamRouter", "StreamScheduler"} \
+        <= set(engine.__all__)
+    # not ported on purpose: the device picks the kernel, and stacked
+    # ranks have no mesh axis or per-shard upload layout
+    assert not {"resolve_kernel", "kernel_forced_by_env", "AXIS",
+                "ARRAY_FIELDS"} & set(engine.__all__)
+
+
+def test_serve_pool_example_runs_on_cpu(capsys):
+    """``python -m repro_torch.examples.serve_pool --device cpu`` at its
+    own size: two CPU lanes, sticky warm resubmits, a warm-start reroute."""
+    from repro_torch.examples import serve_pool
+
+    serve_pool.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    sticky = out.split("== streams are sticky")[1].split("== warm-start")[0]
+    assert sticky.count("decision=reuse   new_steps=0  captures=0  "
+                        "uploads=0") == 4
+    assert "client-0 now on lane 1: decision=reuse  new_steps=0  " \
+        "captures=0  uploads=0" in out
+    assert "lanes=2  submitted=" in out and "failed=0" in out
+    assert "rerouted=1" in out
+    assert not [th for th in threading.enumerate()
+                if th.name.startswith(("sched-prepare", "sched-run"))]
 
 
 def test_port_import_leaves_jax_and_repro_unloaded():
