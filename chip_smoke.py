@@ -124,9 +124,26 @@ Phases, each fatal on failure (nothing is caught):
     compilations, captures and uploads, and the launch counts and peak
     memory of the phase.
 
-The distributed phases (7, 8, 9, 13, 14, 15, 16, 17) run right after the
-kernel checks (3); when the run is late, the single-process paths are cut
-to one invocation (never their shape).
+18. the mesh on phase 8's default-pad plan (right after phase 15, on the
+    shared executor's resident plan): P = 4 over ``[cuda:0] * G`` for
+    G = 2 and 4 (``make_ranks_mesh``, ``HooiExecutor(4, mesh=)``, each
+    group on its own stream), ``fused_block8`` on psum and boundary and
+    one vector run (G = 2), each against the stacked captured run of the
+    same plan, seed and draws (bitwise, or within the f32 bars: rows
+    straddle a chunk at a group's start); the stacked boundary run also
+    timed eagerly; a rerun bitwise with 0 uploads and 0 compilations;
+    fits, steady seconds per sweep, launches per sweep, bytes between
+    groups per sweep beside ``comm_model``'s, peak memory; every group's
+    arrays on its device, every kernel launch with its group's device
+    current and on its group's stream; with two or more cards a mesh over
+    distinct cards too (else the skip is logged);
+19. the same on phase 17's geometric-pad reselect plan (E_pad 2^25, every
+    group's first element at a multiple of CHUNK), after the pool, against
+    a fresh stacked executor: every run bitwise.
+
+The distributed phases (7, 8, 9, 13, 14, 15, 18, 16, 17, 19) run right
+after the kernel checks (3); when the run is late, the single-process
+paths are cut to one invocation (never their shape).
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit line, and as the last line ``{"ok": true, "device": {...}}``. Without
@@ -1860,6 +1877,231 @@ def _pool_checks(pool, router, stream, ladder, seen) -> dict:
     out["fits"] = {"warm_start": list(first.stats.fits),
                    "direct": list(direct.fits),
                    "ladder_reselect": reselect["fits"]}
+    out["plan"], out["snap"] = pl, snap  # on to the mesh phase
+    return out
+
+
+# the mesh phases: P = 4 ranks over [cuda:0] * G device groups
+MESH_GROUPS = (2, 4)
+MESH_RUNS = (  # (label, path, knobs) beside dist_kwargs()
+    ("fused_block8 psum", "baseline", {}),
+    ("fused_block8 boundary", "liteopt", {}),
+    ("vector boundary", "liteopt", dict(lanczos_block=1, fused_zbuild=False)),
+)
+
+
+def kernel_spies(seen: list):
+    """Patches for ``kernels.ops``' two launch sites: each call records
+    (current device, the operand's device, the current stream) and goes on
+    to the wrapper (which counts its launch)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def spy(real):
+        def call(*a, **k):
+            seen.append((torch.cuda.current_device(), a[0].device.index,
+                         torch.cuda.current_stream().cuda_stream))
+            return real(*a, **k)
+        return call
+
+    return [(ops, "kron_segsum_gather", spy(ops.kron_segsum_gather)),
+            (ops, "_oracle_pair_kernel", spy(ops._oracle_pair_kernel))]
+
+
+def core_share(t, core) -> float:
+    """‖G‖²/‖T‖², summed in f64."""
+    tt = getattr(t, "_true_norm2", None)
+    tt = float(tt) if tt is not None else float(
+        np.sum(np.asarray(t.values, np.float64) ** 2))
+    return float(np.sum(core.double().cpu().numpy() ** 2)) / tt
+
+
+def held_to_stacked(t, got, want, what: str, bitwise: bool) -> str:
+    """A mesh run against the stacked run of the same plan, seed and draws:
+    bitwise (factors, core, fits), or where ``bitwise`` is False within
+    the f32 bars (fits 1e-4, the energy share 1e-6 relative near a fit of
+    1, cores' share 2e-6 relative). Returns the verdict."""
+    import torch
+
+    (dec, st), (wdec, wst) = got, want
+    if st.fits == wst.fits and torch.equal(dec.core, wdec.core) and all(
+            torch.equal(a, b) for a, b in zip(dec.factors, wdec.factors)):
+        return "bitwise"
+    if bitwise:
+        raise AssertionError(f"{what}: not bitwise: fits {st.fits} "
+                             f"against {wst.fits}")
+    f, w = np.asarray(st.fits), np.asarray(wst.fits)
+    near = w > 1 - 1e-3
+    share = (np.abs((1 - (1 - f[near]) ** 2) - (1 - (1 - w[near]) ** 2))
+             <= 1e-6 * (1 - (1 - w[near]) ** 2)).all()
+    cores = (core_share(t, dec.core), core_share(t, wdec.core))
+    if not (np.abs(f[~near] - w[~near]) <= 1e-4).all() or not share or \
+            abs(cores[0] - cores[1]) > 2e-6 * cores[1]:
+        raise AssertionError(f"{what}: outside the f32 bars of the stacked "
+                             f"run: fits {st.fits} against {wst.fits}, "
+                             f"cores' share {cores}")
+    return (f"within the f32 bars (max fit gap "
+            f"{float(np.max(np.abs(f - w))):.3e}, cores' share "
+            f"{cores[0]!r} against {cores[1]!r})")
+
+
+def mesh_run(ex, t, pl, label: str, path: str, kw: dict, mesh=None):
+    """One run on ``ex`` with launch counts, spies and peak memory read
+    around it; returns ((dec, stats), record)."""
+    import torch
+
+    seen: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    patches = kernel_spies(seen) if mesh is not None else []
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    args = {k: v for k, v in dist_kwargs().items() if k != "device"}
+    try:
+        dec, st = ex.run(t, CORE, pl, n_invocations=DIST_INVOCATIONS,
+                         path=path, **dict(args, **kw))
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    sweeps = len(st.fits)
+    rec = {"stats": st, "launches": launches, "peak_bytes": peak,
+           "steady_s": float(np.mean(st.sweep_s[1:] or st.sweep_s)),
+           "group_bytes_per_sweep": st.group_bytes / sweeps}
+    check_fits(st.fits, label)
+    if mesh is not None:
+        streams = {s.cuda_stream for s in mesh.streams}
+        home = torch.cuda.current_stream().cuda_stream
+        wrong = [s for s in seen if s[0] != s[1]]
+        used = {s for _, _, s in seen}
+        if wrong or not streams <= used or used - streams - {home}:
+            raise AssertionError(
+                f"{label}: launches with another current device {wrong[:4]}"
+                f" or off the groups' streams ({len(used)} streams used, "
+                f"groups {len(streams)})")
+        rec["launch_sites"] = len(seen)
+        for name in ("kron_segsum", "oracle_pair"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} not launched on the mesh "
+                                     f"path ({label})")
+    log(f"mesh {label}: groups={st.groups} fits={st.fits} "
+        f"sweeps={[round(x, 4) for x in st.sweep_s]} "
+        f"steady_s_per_sweep={rec['steady_s']:.4f} setup_s={st.setup_s:.4f} "
+        f"compilations={st.step_compilations} captures={st.step_captures} "
+        f"uploads={st.uploads} launches per sweep "
+        + str({k: v / sweeps for k, v in launches.items()})
+        + f" group_bytes per sweep {rec['group_bytes_per_sweep']:.0f} "
+        f"max_memory_allocated={peak / 2**30:.3f} GiB")
+    return (dec, st), rec
+
+
+def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
+    """P = 4 ranks over ``[cuda:0] * G`` meshes, G in ``MESH_GROUPS``, on
+    plan ``pl`` of ``t``: each of ``MESH_RUNS`` against the stacked run of
+    the same plan, seed and draws run eagerly, as a mesh's steps run
+    (``stacked_ex`` with its captures off; a fresh executor when None):
+    bitwise where ``bitwise`` (every group's first element at a multiple
+    of the chunk kernel's CHUNK) and else bitwise or within the f32 bars;
+    a rerun bitwise with 0 uploads and 0 compilations; every group's
+    arrays on its device; every kernel launch with its group's device
+    current and on its group's stream. The stacked runs are also timed
+    captured, and held to the eager ones (bitwise or the f32 bars: a
+    captured step may round apart from the same step run eagerly). With
+    two or more cards, a mesh over distinct cards too."""
+    import torch
+    from repro_torch.distributed.dist_hooi import (HooiExecutor,
+                                                   make_ranks_mesh)
+    from repro_torch.kernels.kron_segsum import CHUNK
+
+    sweeps = DIST_INVOCATIONS
+    comm = {k: sum(float(pl.comm(n)[k]) for n in range(len(CORE)))
+            for k in ("baseline_bytes", "liteopt_bytes")}
+    aligned = all(mp.E_pad % CHUNK == 0 for mp in pl.parts)
+    log(f"mesh phase on the {name} plan: E_pad={[mp.E_pad for mp in pl.parts]}"
+        f" (group starts at multiples of CHUNK={CHUNK}: {aligned}); "
+        f"comm_model per sweep: baseline_bytes {comm['baseline_bytes']:.0f}, "
+        f"liteopt_bytes {comm['liteopt_bytes']:.0f}")
+    if bitwise and not aligned:
+        raise AssertionError(f"{name} plan: groups would not start at a "
+                             "chunk boundary")
+    out = {"runs": {}, "comm": comm, "captured": {}, "stacked": {}}
+    stacked = stacked_ex if stacked_ex is not None else HooiExecutor(DIST_P)
+    for label, path, kw in MESH_RUNS:
+        out["captured"][label] = mesh_run(
+            stacked, t, pl, f"stacked captured {label}", path, kw)
+    home, stacked._home = stacked._home, None  # its captures off
+    try:
+        for label, path, kw in MESH_RUNS:
+            out["stacked"][label] = mesh_run(
+                stacked, t, pl, f"stacked eager {label}", path, kw)
+            verdict = held_to_stacked(t, out["captured"][label][0],
+                                      out["stacked"][label][0],
+                                      f"stacked captured {label}", False)
+            log(f"stacked captured {label} ({name}) against eager: "
+                f"{verdict}")
+    finally:
+        stacked._home = home
+    meshes = [(f"G={G}", [torch.device("cuda", 0)] * G) for G in MESH_GROUPS]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("two cards", [torch.device("cuda", i)
+                                     for i in range(2)]))
+    else:
+        log("mesh over distinct cards skipped: one card")
+    for mlabel, devices in meshes:
+        mesh = make_ranks_mesh(DIST_P, devices=devices)
+        ex = HooiExecutor(DIST_P, mesh=mesh)
+        t0 = time.perf_counter()
+        staged = ex.stage_upload(pl, t)
+        stage_s = time.perf_counter() - t0
+        up = ex._uploads[pl]
+        for m in up.arrs:
+            for g, ga in enumerate(m["groups"]):
+                if any(a.device != mesh.devices[g] for a in ga.values()):
+                    raise AssertionError(f"{mlabel}: group {g}'s arrays "
+                                         "off its device")
+        log(f"mesh {mlabel} on {name}: stage_upload {staged} in "
+            f"{stage_s:.3f} s; every group's arrays on its device")
+        results = {}
+        for label, path, kw in MESH_RUNS:
+            if mlabel != "G=2" and label.startswith("vector"):
+                continue  # one vector run
+            got, rec = results[label] = mesh_run(
+                ex, t, pl, f"{mlabel} {label} ({name})", path, kw, mesh=mesh)
+            verdict = held_to_stacked(
+                t, got, out["stacked"][label][0], f"{mlabel} {label}",
+                bitwise)
+            rec["verdict"] = verdict
+            log(f"mesh {mlabel} {label} ({name}) against the stacked eager "
+                f"run: {verdict}; steady sweep {rec['steady_s']:.4f} s "
+                f"against stacked eager "
+                f"{out['stacked'][label][1]['steady_s']:.4f} s and captured "
+                f"{out['captured'][label][1]['steady_s']:.4f} s; bytes "
+                f"between groups per sweep "
+                f"{rec['group_bytes_per_sweep']:.0f} (comm_model: baseline "
+                f"{comm['baseline_bytes']:.0f}, liteopt "
+                f"{comm['liteopt_bytes']:.0f})")
+            if got[1].step_captures or got[1].graph_replays:
+                raise AssertionError(f"{mlabel}: a mesh step was captured")
+            out["runs"][f"{mlabel} {label}"] = rec
+        label, path, kw = MESH_RUNS[1]
+        first = results[label][0]
+        again, _ = mesh_run(ex, t, pl, f"{mlabel} {label} rerun ({name})",
+                            path, kw, mesh=mesh)
+        st = again[1]
+        if (st.uploads, st.step_compilations) != (0, 0) or \
+                held_to_stacked(t, again, first, f"{mlabel} rerun",
+                                True) != "bitwise":
+            raise AssertionError(f"{mlabel} rerun: {st.uploads} uploads, "
+                                 f"{st.step_compilations} compilations")
+        log(f"mesh {mlabel} rerun ({name}): 0 uploads, 0 compilations, "
+            f"bitwise the first run; stats() {ex.stats()}")
+        del ex, up, results, first, again
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2271,6 +2513,10 @@ def main() -> int:
     phase_capture_bitwise(t, dist["plan"])
     calibration = phase_reuse_profile_and_calibration(t, dist["plan"])
     stoch = phase_stochastic(t, dist["plan"], dist["factors"], dist["fit"])
+    from repro_torch.distributed.dist_hooi import shared_executor
+
+    mesh_default = phase_mesh(t, dist["plan"], "default-pad", bitwise=False,
+                              stacked_ex=shared_executor(DIST_P))
 
     def release(before: str) -> None:
         # nothing of the phases before stays resident: their plans (held
@@ -2293,6 +2539,8 @@ def main() -> int:
         f"{[round(x, 3) for x in ladder['append_s']]} s")
     release("the pool phase")
     pool = phase_pool(ladder)
+    mesh_geo = phase_mesh(pool.pop("snap"), pool.pop("plan"),
+                          "geometric-pad reselect", bitwise=True)
     release("the single-process phases")
 
     main = phase_main_path(t)
@@ -2335,7 +2583,11 @@ def main() -> int:
                "scheduler_ladder": ladder["launches"][name],
                "pool_router": pool["launches"][name],
                "hooi_completion": objectives["completion"]["launches"][name],
-               "hooi_nn": objectives["nn"]["launches"][name]}
+               "hooi_nn": objectives["nn"]["launches"][name],
+               **{f"mesh {plan} {label}": rec["launches"][name]
+                  for plan, mesh in (("default-pad", mesh_default),
+                                     ("geometric-pad", mesh_geo))
+                  for label, rec in mesh["runs"].items()}}
         for name in ("kron_segsum", "kron_segsum_oracle", "oracle_pair")}
     log(f"launches by path: {by_path}; executions on the card in replayed "
         f"runs (profiler): dist {dist_replayed['executions']}, refine "

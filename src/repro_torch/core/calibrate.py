@@ -290,6 +290,9 @@ def fit_cost_model(
     degenerate or unphysical per-phase design falls back to the single-rate
     fit below.
 
+    Samples labelled with different ``groups`` (a mesh's device groups;
+    unlabelled is 1) are refused: they measure different machines.
+
     ``warm_only`` drops samples flagged ``warm=False`` (sweeps that paid jit
     compilation — those times measure XLA, not the machine's rates). When the
     design matrix is degenerate (one plan measured, or comm negligible on a
@@ -298,6 +301,12 @@ def fit_cost_model(
     computation-bound workloads anyway.
     """
     base = base or DEFAULT_COST_MODEL
+    groups = {s.get("groups", 1) for s in samples}
+    if len(groups) > 1:
+        # ranks stacked on one device and ranks spread over a mesh's groups
+        # run at different rates: fit each executor's samples on their own
+        raise ValueError(f"samples from meshes of {sorted(groups)} device "
+                         "groups: fit each group count on its own")
     all_use = [s for s in samples if not warm_only or s.get("warm", True)]
     if not all_use:
         raise ValueError("no usable samples (all cold or empty)")

@@ -36,7 +36,8 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core.coo import SparseTensor
-from repro_torch.device import full_precision_matmul, resolve_device
+from repro_torch.device import (full_precision_matmul, on_device,
+                                resolve_device)
 from repro_torch.random import Draw, Key, make_key
 
 __all__ = ["Decomposition", "random_factors", "hosvd_init", "hooi_invocation",
@@ -156,16 +157,17 @@ def hooi_invocation(
     prec, blk, fz, warm = _knobs(precision, lanczos_block, fused_zbuild,
                                  warm_start)
     obj = None if objective is None else resolve_objective(objective)
-    coords, values = convert.device_coords(t, dev)
     new_factors = list(factors)
     track = timings if timings is not None else {}
-    for n in range(t.ndim):
-        new_factors[n] = local_mode_step(
-            coords, values, new_factors, n, t.shape[n], key.fold_in(n),
-            use_fused_oracle=bool(use_fused_oracle), precision=prec,
-            timings=track, objective=obj,
-            **_mode_knobs(new_factors, n, t.shape[n], blk, fz, warm,
-                          lanczos_iters))
+    with on_device(dev):  # the kernels launch on the current device
+        coords, values = convert.device_coords(t, dev)
+        for n in range(t.ndim):
+            new_factors[n] = local_mode_step(
+                coords, values, new_factors, n, t.shape[n], key.fold_in(n),
+                use_fused_oracle=bool(use_fused_oracle), precision=prec,
+                timings=track, objective=obj,
+                **_mode_knobs(new_factors, n, t.shape[n], blk, fz, warm,
+                              lanczos_iters))
     return new_factors
 
 
@@ -233,46 +235,49 @@ def hooi(
     from repro_torch.engine.objective import resolve_objective
 
     dev = resolve_device(device)
-    full_precision_matmul()
-    prec, blk, fz, warm = _knobs(precision, lanczos_block, fused_zbuild,
-                                 warm_start)
-    obj = resolve_objective(objective)
-    t = obj.prepare_tensor(t)
-    fused = bool(use_fused_oracle)
+    # the kernels launch on the current device: make it the run's
+    with on_device(dev):
+        full_precision_matmul()
+        prec, blk, fz, warm = _knobs(precision, lanczos_block, fused_zbuild,
+                                     warm_start)
+        obj = resolve_objective(objective)
+        t = obj.prepare_tensor(t)
+        fused = bool(use_fused_oracle)
 
-    key = make_key(seed, draw)
-    if isinstance(init, str):
-        if init == "random":
-            factors = random_factors(t.shape, core_dims, key, dev)
-        elif init == "hosvd":
-            factors = hosvd_init(t, core_dims, dev)
+        key = make_key(seed, draw)
+        if isinstance(init, str):
+            if init == "random":
+                factors = random_factors(t.shape, core_dims, key, dev)
+            elif init == "hosvd":
+                factors = hosvd_init(t, core_dims, dev)
+            else:
+                raise ValueError(f"unknown init {init!r}")
         else:
-            raise ValueError(f"unknown init {init!r}")
-    else:
-        factors = convert.factors(init, dev)
-        got = tuple((int(f.shape[0]), int(f.shape[1])) for f in factors)
-        if got != tuple(zip(t.shape, core_dims)):
-            raise ValueError(f"initial factors have shapes {got}, expected "
-                             f"{tuple(zip(t.shape, core_dims))}")
+            factors = convert.factors(init, dev)
+            got = tuple((int(f.shape[0]), int(f.shape[1])) for f in factors)
+            if got != tuple(zip(t.shape, core_dims)):
+                raise ValueError(f"initial factors have shapes {got}, "
+                                 f"expected "
+                                 f"{tuple(zip(t.shape, core_dims))}")
 
-    coords, values = convert.device_coords(t, dev)
+        coords, values = convert.device_coords(t, dev)
 
-    from repro_torch.engine.steps import local_mode_step
-    from repro_torch.engine.sweep import run_hooi_sweeps
+        from repro_torch.engine.steps import local_mode_step
+        from repro_torch.engine.sweep import run_hooi_sweeps
 
-    def mode_step(n, facs, kk):
-        return local_mode_step(coords, values, facs, n, t.shape[n], kk,
-                               use_fused_oracle=fused, precision=prec,
-                               objective=obj,
-                               **_mode_knobs(facs, n, t.shape[n], blk, fz,
-                                             warm, lanczos_iters))
+        def mode_step(n, facs, kk):
+            return local_mode_step(coords, values, facs, n, t.shape[n], kk,
+                                   use_fused_oracle=fused, precision=prec,
+                                   objective=obj,
+                                   **_mode_knobs(facs, n, t.shape[n], blk, fz,
+                                                 warm, lanczos_iters))
 
-    def report(it, seconds, fit):
-        if verbose:
-            print(f"  HOOI invocation {it}: fit={fit:.4f}")
-        if on_sweep is not None:
-            on_sweep(it, seconds, fit)
+        def report(it, seconds, fit):
+            if verbose:
+                print(f"  HOOI invocation {it}: fit={fit:.4f}")
+            if on_sweep is not None:
+                on_sweep(it, seconds, fit)
 
-    return run_hooi_sweeps(coords, values, t, factors, key, n_invocations,
-                           mode_step, on_sweep=report, objective=obj,
-                           metrics_out=metrics_out)
+        return run_hooi_sweeps(coords, values, t, factors, key,
+                               n_invocations, mode_step, on_sweep=report,
+                               objective=obj, metrics_out=metrics_out)

@@ -13,7 +13,8 @@ import functools
 
 import torch
 
-__all__ = ["resolve_device", "full_precision_matmul", "on_own_device"]
+__all__ = ["resolve_device", "indexed_device", "full_precision_matmul",
+           "on_device", "on_own_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -25,6 +26,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "repro_torch runs on CUDA unless asked otherwise, and no CUDA "
             "device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
+    return dev
+
+
+def indexed_device(device: str | torch.device) -> torch.device:
+    """``resolve_device(device)`` with an explicit index: ``"cuda"`` means
+    the current CUDA device, which ``"cuda:0"`` may name too, so two names
+    of one card compare equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -40,20 +51,23 @@ def full_precision_matmul() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-def on_own_device(method):
-    """Run a method of an object with a ``device`` under that device.
+def on_device(dev: torch.device):
+    """A context that makes ``dev`` the current CUDA device (off CUDA it
+    does nothing). The kernels launch through ``ctypes`` on the current
+    device's context, and captures, events and pinned copies bind to it as
+    well, so work for ``cuda:1`` issued from a thread whose current device
+    is ``cuda:0`` (every new thread starts there) would go to the wrong
+    card."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
 
-    The kernels launch through ``ctypes`` on the current CUDA device's
-    context, and captures, events and pinned copies bind to it as well, so
-    work for ``cuda:1`` issued from a thread whose current device is
-    ``cuda:0`` (every new thread starts there) would go to the wrong card.
-    Off CUDA the method runs as it is.
-    """
+
+def on_own_device(method):
+    """Run a method of an object with a ``device`` under that device
+    (``on_device``)."""
     @functools.wraps(method)
     def run(self, *args, **kwargs):
-        dev = self.device
-        with (torch.cuda.device(dev) if dev.type == "cuda"
-              else contextlib.nullcontext()):
+        with on_device(self.device):
             return method(self, *args, **kwargs)
 
     return run

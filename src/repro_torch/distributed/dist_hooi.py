@@ -1,12 +1,13 @@
 """Distributed HOOI: the ``dist_hooi`` entry point over ``HooiExecutor``.
 
 The port of ``src/repro/distributed/dist_hooi.py``. The P ranks are stacked
-along a leading dimension on one device (default: the card); see
-``repro_torch.distributed.executor``. Calls run on the process-wide
-``shared_executor(P, device)``, so a repeated call on a cached plan
-compiles and uploads nothing. The reference's ``mesh`` and ``use_kernel``
-arguments are absent: there is no mesh, and the device decides the Z-build
-(kernels on the card, plain PyTorch on the CPU).
+along a leading dimension on one device (default: the card), or spread over
+the device groups of ``mesh=make_ranks_mesh(P, devices)``; see
+``repro_torch.distributed.executor`` and ``repro_torch.distributed.mesh``.
+Calls run on the process-wide ``shared_executor(P, device, mesh=)``, so a
+repeated call on a cached plan compiles and uploads nothing. The
+reference's ``use_kernel`` argument is absent: the device decides the
+Z-build (kernels on the card, plain PyTorch on the CPU).
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ from repro_torch.random import Draw
 
 from .executor import (DistHooiStats, HooiExecutor,  # noqa: F401
                        comm_model, shared_executor)
+from .mesh import RankMesh, make_ranks_mesh
 
-__all__ = ["dist_hooi", "DistHooiStats", "HooiExecutor", "comm_model",
-           "shared_executor"]
+__all__ = ["dist_hooi", "make_ranks_mesh", "comm_model", "DistHooiStats",
+           "HooiExecutor", "shared_executor"]
 
 
 def dist_hooi(
@@ -47,6 +49,7 @@ def dist_hooi(
     objective=None,
     *,
     device: str | torch.device | None = None,
+    mesh: RankMesh | None = None,
     draw: Draw | None = None,
     init: Sequence | None = None,
     on_sweep: Callable[[int, float, float], None] | None = None,
@@ -62,12 +65,14 @@ def dist_hooi(
     knobs are ``HooiExecutor.run``'s (``pad_geometric`` quantizes the
     partition pads to powers of two, part of the plan-cache key, as the
     scheduler's streaming plans are built). ``executor`` overrides
-    ``shared_executor(P_ranks, device)``; ``init`` passes initial factors
-    (coerced to ``core_dims``), ``draw`` the random-draw seam,
-    ``on_sweep(it, seconds, fit)`` observes every sweep.
+    ``shared_executor(P_ranks, device, mesh=mesh)``: ``mesh``
+    (``make_ranks_mesh``) spreads the ranks over its device groups, and
+    excludes ``device`` (its first device is the run's). ``init`` passes
+    initial factors (coerced to ``core_dims``), ``draw`` the random-draw
+    seam, ``on_sweep(it, seconds, fit)`` observes every sweep.
     """
     ex = executor if executor is not None \
-        else shared_executor(P_ranks, device)
+        else shared_executor(P_ranks, device, mesh=mesh)
     if ex.P != P_ranks:
         raise ValueError(f"executor has P={ex.P}, asked for {P_ranks}")
     return ex.run(t, core_dims, scheme, n_invocations=n_invocations,

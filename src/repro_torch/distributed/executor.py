@@ -1,11 +1,18 @@
-"""HooiExecutor: distributed HOOI over P ranks stacked on one device.
+"""HooiExecutor: distributed HOOI over P ranks stacked on one device, or
+spread over the device groups of a mesh.
 
 The port of ``src/repro/distributed/executor.py``. The reference runs the P
 ranks on P devices of a ``ranks`` mesh, through ``shard_map`` steps it
 compiles and caches, over device uploads it caches per plan. Here the P
 ranks are a leading dimension of every partition array on one device (the
 card, or the CPU when asked), and a ``psum`` is a sum over that dimension in
-rank order (``engine.comm``). The executor owns no math of its own: every
+rank order (``engine.comm``). With ``mesh=`` (``distributed.mesh``) the
+ranks are spread over G device groups: each group holds its ranks'
+elements and builds and multiplies their Z on its device, while the comm
+maps, the Lanczos state, the full COO, the core and the fit stay at the
+mesh's home (its first device) in the stacked layout; such steps run
+eagerly (a G = 1 mesh is the stacked executor, captures included). The
+executor owns no math of its own: every
 mode step is built by ``engine.steps`` (Z-build -> oracle -> comm backend)
 and the sweep loop is the shared ``engine.sweep.run_hooi_sweeps``. What it
 owns:
@@ -15,7 +22,8 @@ owns:
   niter, precision, panel width, fused build, objective, warm start), LRU
   bounded at ``MAX_COMPILED_STEPS``. A *compilation* is counted exactly as
   the reference counts it: the first call of a (step, shapes) signature.
-  On the CPU the step then runs eagerly. On the card a call runs the step
+  On the CPU, and over a mesh of several groups, the step then runs
+  eagerly. Otherwise on the card a call runs the step
   as CUDA graphs (``repro_torch.graphs``): the first call over a plan's
   arrays is a **capture** (an eager warm-up, then the step captured segment
   by segment), later calls replay. A graph is bound to the arrays it was
@@ -23,13 +31,16 @@ owns:
   equal another's shares its steps (no compilation) but captures its own.
 * an **upload cache**: each plan's device arrays, keyed weakly on the
   plan's identity and deduplicated on its parts (an ``auto`` plan shares
-  its winner's arrays). On the card they go up through pinned memory on a
-  stream of their own, so ``stage_upload`` can run in a producer thread
-  while another thread sweeps.
+  its winner's arrays); over a mesh, one set of element arrays per group
+  on its device and the rest at home. On the card they go up through
+  pinned memory on a stream of their own (one per group), so
+  ``stage_upload`` can run in a producer thread while another thread
+  sweeps.
 * **calibration**: every sweep of ``run`` appends a sample (modeled flops
   and bytes beside the measured seconds; a sweep that paid a compilation
   or a capture is ``warm=False``), and ``profile_phases`` appends a pure
   TTM probe and a full sweep; ``core.calibrate.fit_cost_model`` fits them.
+  A mesh of G > 1 groups labels its samples ``groups=G``.
 * the **stochastic-refine rung** (``run_stochastic``): carried factors
   updated from a deterministic minibatch of an append (``core.stochastic``)
   through the same step cache.
@@ -61,6 +72,7 @@ from repro_torch.core.stochastic import (blend_factor, next_pow2,
 from repro_torch.core.ttm import core_from_factors
 from repro_torch.device import (full_precision_matmul, on_own_device,
                                 resolve_device)
+from repro_torch.distributed.mesh import RankMesh, make_ranks_mesh
 from repro_torch.engine.comm import (backend_comm_bytes, comm_maps,
                                      resolve_backend)
 from repro_torch.engine.objective import resolve_objective
@@ -77,11 +89,12 @@ from repro_torch.random import Draw, Key, make_key
 from .partition import comm_model  # noqa: F401 — re-export
 
 __all__ = ["HooiExecutor", "shared_executor", "DistHooiStats", "comm_model",
-           "upload_mode", "RUN_PATHS"]
+           "upload_mode", "make_ranks_mesh", "RankMesh", "RUN_PATHS"]
 
 MAX_CALIBRATION_SAMPLES = 1024
 MAX_COMPILED_STEPS = 256  # step functions (and their captures) per executor
 MAX_STOCH_UPLOADS = 32  # resident stochastic minibatches per executor
+MAX_SHARED_MESH_EXECUTORS = 8  # shared executors kept for given meshes
 
 RUN_PATHS = ("baseline", "liteopt", "auto")
 
@@ -140,6 +153,10 @@ class DistHooiStats:
       ``"sketch"``);
     * ``mode_spectra`` — per mode, the last sweep's singular-value
       estimates;
+    * ``groups`` — the device groups the ranks ran on (1: stacked on one
+      device); ``group_bytes`` — bytes this call moved between groups
+      (``RankMesh.moved_bytes``: the Z products' operands and answers and
+      the factors and first panel each group reads; 0 for one group);
     * ``sample_fraction``/``sample_nnz``/``replay_nnz``/``step_size`` — the
       stochastic rung only: the fraction sampled, the sampled new elements,
       the replayed prefix elements and the blend step ``eta`` applied.
@@ -191,6 +208,8 @@ class DistHooiStats:
     objective_metrics: dict | None = None
     warm_start: dict | None = None
     mode_spectra: dict | None = None
+    groups: int = 1
+    group_bytes: int = 0
     sample_fraction: float | None = None
     sample_nnz: int | None = None
     replay_nnz: int | None = None
@@ -223,10 +242,21 @@ class _ModeSpec:
     warm_start: str = "none"  # resolved per mode ("none" | "sketch")
 
 
+def _flat(arrs: dict):
+    """A step's arrays, a mesh's per-group element arrays included."""
+    for name, a in arrs.items():
+        if name == "groups":
+            for ga in a:
+                yield from ga.values()
+        else:
+            yield a
+
+
 @dataclasses.dataclass(eq=False)
 class _PlanUpload:
     """One plan's device arrays (the upload cache's payload) and the steps
-    captured over them."""
+    captured over them. Over a mesh of several groups, each mode's arrays
+    hold ``groups``: per group its ranks' elements on its device."""
 
     arrs: tuple  # per mode: the step's arrays (``upload_mode``)
     zarrs: tuple  # per mode: coords, values, rows (the Z-build-only step)
@@ -237,8 +267,13 @@ class _PlanUpload:
     graphs: dict = dataclasses.field(default_factory=dict)
 
     def tensors(self) -> list:
-        return [*(a for m in self.arrs for a in m.values()),
+        """The arrays at home (every array, without a mesh)."""
+        return [*(a for m in self.arrs for k, a in m.items()
+                  if k != "groups"),
                 *self.row_perms, self.coords, self.values]
+
+    def group_tensors(self, g: int) -> list:
+        return [a for m in self.arrs for a in m["groups"][g].values()]
 
 
 @dataclasses.dataclass(eq=False)
@@ -255,15 +290,19 @@ class _StochUpload:
         return [*self.arrs.values(), self.coords, self.values]
 
 
-def _read_here(up):
-    """Mark an upload's arrays as read on the current stream, and return
-    it. They are blocks of their uploader's stream, whose cache may hand a
-    block out again as soon as it is freed; ``record_stream`` makes that
-    wait for the work queued here. Off CUDA: nothing."""
+def _read_here(up, mesh: RankMesh | None = None):
+    """Mark an upload's arrays as read on the current stream (a mesh
+    group's on the group's stream), and return it. They are blocks of their
+    uploader's stream, whose cache may hand a block out again as soon as it
+    is freed; ``record_stream`` makes that wait for the work queued on the
+    reader. Off CUDA: nothing."""
     if up.coords.is_cuda:
         stream = torch.cuda.current_stream(up.coords.device)
         for a in up.tensors():
             a.record_stream(stream)
+        for g in range(mesh.G if mesh is not None else 0):
+            for a in up.group_tensors(g):
+                a.record_stream(mesh.streams[g])
     return up
 
 
@@ -316,24 +355,30 @@ class _Uploader:
             self.stream.synchronize()
 
 
-def upload_mode(mp, dev: torch.device, put: Callable | None = None) -> dict:
+def upload_mode(mp, dev: torch.device, put: Callable | None = None,
+                ranks: range | None = None) -> dict:
     """One ``ModePartition`` on ``dev``: its elements flattened over the
     ranks, with each rank's local rows offset by ``p*R_pad`` (still sorted,
     one Z-build for all ranks), and the comm spaces' gather maps. ``put``
-    moves one host array (default: a plain copy)."""
+    moves one host array (default: a plain copy). ``ranks`` (a mesh
+    group's range) moves only those ranks' elements, their rows offset
+    from the range's first rank, and no maps."""
     if put is None:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     P, E_pad, N = mp.coords.shape
     if P * mp.R_pad >= 2**31:
         raise ValueError(f"P*R_pad = {P * mp.R_pad} rows exceed int32")
-    rows = (mp.local_rows.astype(np.int32)
-            + (np.arange(P, dtype=np.int32) * np.int32(mp.R_pad))[:, None])
-    arrs = {"coords": put(mp.coords.reshape(P * E_pad, N)),
-            "values": put(mp.values.reshape(-1)),
+    lo, hi = (0, P) if ranks is None else (ranks.start, ranks.stop)
+    n = hi - lo
+    rows = (mp.local_rows[lo:hi].astype(np.int32)
+            + (np.arange(n, dtype=np.int32) * np.int32(mp.R_pad))[:, None])
+    arrs = {"coords": put(mp.coords[lo:hi].reshape(n * E_pad, N)),
+            "values": put(mp.values[lo:hi].reshape(-1)),
             "rows": put(rows.reshape(-1))}
-    for name, idx in comm_maps(mp).items():
-        arrs[name] = put(idx)
+    if ranks is None:
+        for name, idx in comm_maps(mp).items():
+            arrs[name] = put(idx)
     return arrs
 
 
@@ -356,14 +401,30 @@ def _tally() -> dict:
 
 class HooiExecutor:
     """Runs distributed HOOI sweeps over ``P_ranks`` ranks stacked on one
-    device (default: the card), caching the steps and the per-plan uploads
-    across runs. ``shared_executor(P, device)`` hands out one per process,
-    which ``dist_hooi`` runs on."""
+    device (default: the card), or spread over the device groups of
+    ``mesh`` (``make_ranks_mesh``; its home is then ``device``), caching
+    the steps and the per-plan uploads across runs.
+    ``shared_executor(P, device, mesh=)`` hands out one per process, which
+    ``dist_hooi`` runs on."""
 
-    def __init__(self, P_ranks: int, device: str | torch.device | None = None):
+    def __init__(self, P_ranks: int, device: str | torch.device | None = None,
+                 *, mesh: RankMesh | None = None):
         self.P = int(P_ranks)
         if self.P < 1:
             raise ValueError(f"P_ranks must be >= 1, got {P_ranks}")
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a mesh or a device, not both: the "
+                                 "mesh's first device is its home")
+            if mesh.P != self.P:
+                raise ValueError(f"mesh of P={mesh.P} ranks, executor has "
+                                 f"P={self.P}")
+            device = mesh.home
+        self.mesh = mesh
+        # the group path runs only over several groups: a one-group mesh is
+        # the stacked executor on its device
+        self._spread = mesh if mesh is not None and mesh.G > 1 else None
+        self.groups = 1 if self._spread is None else mesh.G
         self.device = resolve_device(device)
         self._lock = threading.RLock()
         self._steps: dict[tuple, Callable] = {}  # static sig -> step fn
@@ -385,8 +446,9 @@ class HooiExecutor:
                        "step_cache_hits": 0, "step_captures": 0,
                        "graph_replays": 0, "uploads": 0,
                        "upload_cache_hits": 0}
+        # a mesh of several groups runs its steps eagerly (``_invoke``)
         self._home = CaptureHome(self.device) \
-            if self.device.type == "cuda" else None
+            if self.device.type == "cuda" and self._spread is None else None
 
     # ------------------------------------------------------------ planning
     def _check_plan(self, pl: PartitionPlan, t: SparseTensor,
@@ -495,7 +557,7 @@ class HooiExecutor:
                 "fused" if use_fused else "plain", mp.mode, mp.R_pad,
                 mp.Lp, mp.S_pad, self.P, K_n, niter, precision,
                 int(block_size), "fz" if fused_zbuild else "zb", objective,
-                warm_start)
+                warm_start, self.groups)
 
     def _cache_step(self, skey: tuple, make: Callable) -> Callable:
         with self._lock:
@@ -532,11 +594,12 @@ class HooiExecutor:
                        warm_start)
         if path == "zbuild":
             def make():
-                return make_zbuild_step_fn(ms, precision=precision)
+                return make_zbuild_step_fn(ms, precision=precision,
+                                           mesh=self._spread)
         else:
             def make():
                 return make_mode_step_fn(ms, resolve_backend(path, self.P),
-                                         K_n, niter)
+                                         K_n, niter, mesh=self._spread)
         return skey, self._cache_step(skey, make)
 
     def _note_shapes(self, skey, shapes, tally: dict) -> None:
@@ -554,14 +617,14 @@ class HooiExecutor:
 
     @staticmethod
     def _shapes(arrs: dict, factors) -> tuple:
-        return tuple(tuple(a.shape) for a in arrs.values()) + tuple(
+        return tuple(tuple(a.shape) for a in _flat(arrs)) + tuple(
             tuple(f.shape) for f in factors)
 
     def _invoke(self, skey, step, home, arrs: dict, factors, key,
                 tally: dict):
-        """Run a cached step: eagerly on the CPU; on the card its graphs,
-        captured over ``arrs`` on the first call (kept in ``home.graphs``,
-        beside the arrays)."""
+        """Run a cached step: eagerly on the CPU and over a mesh of several
+        groups; otherwise on the card its graphs, captured over ``arrs`` on
+        the first call (kept in ``home.graphs``, beside the arrays)."""
         if self._home is None:
             return step(arrs, factors, key)
         gkey = (skey, self._shapes(arrs, factors))
@@ -597,20 +660,24 @@ class HooiExecutor:
             if up is not None:
                 self._stats["upload_cache_hits"] += 1
                 tally["upload_cache_hits"] += 1
-                return _read_here(up)
+                return _read_here(up, self._spread)
         mover = _Uploader(self.device)
-        arrs = tuple(upload_mode(mp, self.device, mover.put)
-                     for mp in pl.parts)
+        if self._spread is None:
+            arrs = tuple(upload_mode(mp, self.device, mover.put)
+                         for mp in pl.parts)
+            zarrs = tuple({k: a[k] for k in ("coords", "values", "rows")}
+                          for a in arrs)
+            movers = [mover]
+        else:
+            arrs, zarrs, movers = self._upload_groups(pl, mover)
         row_perms = tuple(mover.put(mp.row_perm) for mp in pl.parts)
         coords = mover.put(t.coords, np.int32)
         values = mover.put(t.values, np.float32)
-        mover.finish()
+        for m in movers:
+            m.finish()
         up = _PlanUpload(
-            arrs=arrs,
-            zarrs=tuple({k: a[k] for k in ("coords", "values", "rows")}
-                        for a in arrs),
-            row_perms=row_perms, coords=coords, values=values,
-            n_arrays=mover.count)
+            arrs=arrs, zarrs=zarrs, row_perms=row_perms, coords=coords,
+            values=values, n_arrays=sum(m.count for m in movers))
         with self._lock:
             won = self._uploads.setdefault(pl, up)
             if won is up:
@@ -618,7 +685,25 @@ class HooiExecutor:
             # the setdefault loser still moved its arrays: count them
             self._stats["uploads"] += up.n_arrays
             tally["uploads"] += up.n_arrays
-        return _read_here(won)
+        return _read_here(won, self._spread)
+
+    def _upload_groups(self, pl: PartitionPlan, home: _Uploader):
+        """A plan's per-mode arrays over the mesh: each group's ranks'
+        elements through an uploader on its device, the maps at home.
+        Returns the step arrays, the Z-build step's and the uploaders."""
+        mesh = self._spread
+        movers = [home] + [_Uploader(d) for d in mesh.devices[1:]]
+        arrs, zarrs = [], []
+        for mp in pl.parts:
+            groups = tuple(
+                upload_mode(mp, mesh.devices[g], movers[g].put,
+                            ranks=mesh.ranks_of(g))
+                for g in range(mesh.G))
+            maps = {name: home.put(idx)
+                    for name, idx in comm_maps(mp).items()}
+            arrs.append({"groups": groups, **maps})
+            zarrs.append({"groups": groups})
+        return tuple(arrs), tuple(zarrs), movers
 
     # ------------------------------------------------------------ staging
     @on_own_device
@@ -666,10 +751,21 @@ class HooiExecutor:
 
     # ------------------------------------------------------------ observe
     def stats(self) -> dict:
-        """Cumulative counters and cache occupancy."""
+        """Cumulative counters and cache occupancy; ``groups`` and
+        ``group_bytes`` (the mesh's bytes between groups so far)."""
         with self._lock:
             return dict(self._stats, cached_steps=len(self._steps),
-                        cached_plans=len(self._uploads))
+                        cached_plans=len(self._uploads), groups=self.groups,
+                        group_bytes=self._moved())
+
+    def _moved(self) -> int:
+        return 0 if self._spread is None else self._spread.moved_bytes
+
+    def _labels(self) -> dict:
+        """What every calibration sample of this executor carries besides
+        its numbers: a mesh of several groups is told apart from stacked
+        ranks, so ``fit_cost_model`` never mixes their rates."""
+        return {} if self._spread is None else {"groups": self.groups}
 
     def calibration_samples(self) -> list[dict]:
         """Measured sweeps (flops, bytes, seconds) for ``fit_cost_model``."""
@@ -677,7 +773,9 @@ class HooiExecutor:
             return [dict(s) for s in self._samples]
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
+        if self._spread is not None:
+            self._spread.synchronize()
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     @on_own_device
@@ -770,7 +868,7 @@ class HooiExecutor:
                 "comm_bytes": 0.0, "seconds": ttm_s, "warm": True,
                 "P": self.P, "path": path, "scheme": pl.name,
                 "phase": "ttm", "kernel": on_card,
-                "comm_backend": label, "precision": prec,
+                "comm_backend": label, "precision": prec, **self._labels(),
             })
             self._samples.append({
                 "critical_path_flops": m.critical_path_flops,
@@ -780,7 +878,7 @@ class HooiExecutor:
                 "seconds": full_s,
                 "warm": True, "P": self.P, "path": path, "scheme": pl.name,
                 "phase": "sweep", "kernel": on_card,
-                "comm_backend": label, "precision": prec,
+                "comm_backend": label, "precision": prec, **self._labels(),
             })
         return {"ttm_s": ttm_s, "full_s": full_s,
                 "svd_s": max(full_s - ttm_s, 0.0),
@@ -911,6 +1009,7 @@ class HooiExecutor:
                     "P": self.P, "path": path, "scheme": pl.name,
                     "kernel": on_card,
                     "comm_backend": label, "precision": prec,
+                    **self._labels(),
                 })
             cold["seen"] = paid
             if on_sweep is not None:
@@ -918,10 +1017,12 @@ class HooiExecutor:
 
         objective_metrics: dict = {}
         setup_s = time.perf_counter() - t_start
+        moved = self._moved()
         dec, fits = run_hooi_sweeps(up.coords, up.values, t, factors, key,
                                     n_invocations, mode_step,
                                     on_sweep=report, objective=obj,
                                     metrics_out=objective_metrics)
+        moved = self._moved() - moved
         with self._lock:
             self._stats["runs"] += 1
         stats = DistHooiStats(
@@ -959,6 +1060,8 @@ class HooiExecutor:
             warm_start={n: specs[n].warm_start for n in range(N)},
             mode_spectra={n: v.cpu().numpy() for n, v in spectra.items()}
             or None,
+            groups=self.groups,
+            group_bytes=moved,
         )
         return dec, stats
 
@@ -1210,15 +1313,32 @@ def _run_comm_bytes(pl: PartitionPlan, specs: Sequence[_ModeSpec]) -> float:
 
 # ------------------------------------------------------- shared executors
 _SHARED: dict[tuple, HooiExecutor] = {}  # (P, device) -> executor
+# given meshes, keyed by content (``RankMesh.key``: equal meshes share one
+# executor) and LRU-bounded, as the reference keys and bounds them
+_SHARED_BY_MESH: dict[tuple, HooiExecutor] = {}
 _SHARED_LOCK = threading.Lock()
 
 
-def shared_executor(P_ranks: int, device: str | torch.device | None = None
-                    ) -> HooiExecutor:
-    """The process-wide executor for (P, device), which ``dist_hooi`` runs
-    on, so repeated calls (and interleaved calls on different cached
-    tensors) reuse steps and uploads with no plumbing. The reference keys
-    it by mesh; here the ranks share one device."""
+def shared_executor(P_ranks: int, device: str | torch.device | None = None,
+                    *, mesh: RankMesh | None = None) -> HooiExecutor:
+    """The process-wide executor for (P, device), or for (P, mesh), which
+    ``dist_hooi`` runs on, so repeated calls (and interleaved calls on
+    different cached tensors) reuse steps and uploads with no plumbing.
+    Without a mesh the ranks share one device; a mesh is keyed by its
+    content, as the reference keys it."""
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both: the "
+                             "mesh's first device is its home")
+        key = (int(P_ranks), mesh.key())
+        with _SHARED_LOCK:
+            ex = _SHARED_BY_MESH.pop(key, None)  # LRU touch
+            if ex is None:
+                ex = HooiExecutor(P_ranks, mesh=mesh)
+            _SHARED_BY_MESH[key] = ex
+            while len(_SHARED_BY_MESH) > MAX_SHARED_MESH_EXECUTORS:
+                _SHARED_BY_MESH.pop(next(iter(_SHARED_BY_MESH)))
+            return ex
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -10,7 +10,10 @@ stages:
   (``repro_torch.core.lanczos``).
 * **comm backend** (``engine.comm``): ``local`` (P=1), ``psum``
   (replicated row space, the paper's baseline) or ``boundary`` (sharded
-  rows + O(P) boundary exchange), over P ranks stacked on one device.
+  rows + O(P) boundary exchange), over P ranks stacked on one device or
+  gathered at the home of a mesh of device groups
+  (``repro_torch.distributed.mesh``), whose groups build and multiply
+  their Z (``build_group_z``, ``mesh_products``).
 
 ``engine.steps`` composes the stages into mode steps; ``engine.sweep`` is
 the sweep loop both ``repro_torch.core.hooi.hooi`` and
@@ -19,12 +22,13 @@ the sweep loop both ``repro_torch.core.hooi.hooi`` and
 masked completion, nonnegative ADMM Tucker); ``engine.scheduler``
 pipelines many tensors (or stream versions) through one executor;
 ``engine.pool`` + ``engine.router`` serve many concurrent streams over
-several executors, one device each, with priority admission and
+several executors, one device or mesh each, with priority admission and
 warm-start reroutes.
 
 Not exported, unlike the reference: ``resolve_kernel`` and
 ``kernel_forced_by_env`` (the device picks the kernel), ``AXIS`` (the name
-of the reference's mesh axis; stacked ranks have no mesh) and
+of the reference's mesh axis; the port's mesh is a list of device groups
+with no named axis) and
 ``ARRAY_FIELDS`` (the reference's per-shard upload layout; the port's is
 ``repro_torch.distributed.executor.upload_mode``).
 """
@@ -45,6 +49,7 @@ from .objective import (
 from .oracle import (
     choose_warm_start,
     count_z_passes,
+    mesh_products,
     resolve_block_size,
     resolve_warm_start,
     solve_oracle,
@@ -62,6 +67,7 @@ from .steps import (
 )
 from .sweep import run_hooi_sweeps, sweep_key
 from .zbuild import (
+    build_group_z,
     build_local_z,
     build_local_z_oracle,
     resolve_fused_zbuild,
@@ -85,6 +91,7 @@ __all__ = [
     "resolve_warm_start",
     "choose_warm_start",
     "z_products",
+    "mesh_products",
     "ExecutorPool",
     "PoolLane",
     "PoolStats",
@@ -101,6 +108,7 @@ __all__ = [
     "sweep_key",
     "build_local_z",
     "build_local_z_oracle",
+    "build_group_z",
     "resolve_precision",
     "resolve_fused_zbuild",
 ]

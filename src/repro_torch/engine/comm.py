@@ -17,8 +17,17 @@ products into the global oracle the shared Lanczos body consumes:
 The reference runs each rank on its own device inside ``shard_map``. Here
 the P ranks are a stacked leading dimension on one device, so a ``psum`` is
 a sum over that dimension taken in rank order (``rank_sum``), and a sharded
-u-space vector is a ``(P, Lp[, s])`` tensor. The reference's scatters with
-``mode="drop"`` and gathers with ``mode="fill"`` become gathers through
+u-space vector is a ``(P, Lp[, s])`` tensor. Over a mesh of device groups
+(``repro_torch.distributed.mesh``) the maps and every space below live at
+the mesh's home, unchanged: what crosses between groups is only the Z
+products' operands and answers (``oracle.mesh_products``: ``x`` or each
+group's rows of ``y`` out, its ``(P/G*R_pad[, s])`` or ``(P/G, K_hat[,
+s])`` answer back), and the factors and first panel each group's Z-build
+reads, and the fused first panel's product back. The u-space is not
+sharded over the groups' devices.
+
+The reference's scatters with ``mode="drop"`` and gathers with
+``mode="fill"`` become gathers through
 index maps built once per partition on the host (``comm_maps``), with -1
 for "nothing here": every padding row reads 0 and adds 0. No step uses a
 scatter-add over colliding indices, so no float atomics run on the card and

@@ -12,7 +12,10 @@ Z through ``Z @ x`` and ``Zᵀ @ y`` (paper §3):
   results are the same, and either way it is one pass of Z per product.
 
 ``stacked_products`` gives the same two products for the distributed
-step's stacked ranks; ``solve_oracle``/``solve_oracle_block`` run the
+step's stacked ranks, and ``mesh_products`` for ranks spread over the
+device groups of a ``distributed.mesh.RankMesh`` (one product per group,
+on its device and stream, the answers gathered at home in the stacked
+layout); ``solve_oracle``/``solve_oracle_block`` run the
 vector and the block Lanczos drivers. ``resolve_warm_start``,
 ``choose_warm_start`` and ``count_z_passes`` settle the sketch warm start
 (``core.sketch``) per mode and count what each choice reads of Z.
@@ -32,7 +35,7 @@ from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, sketch_block_size,
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.random import Key
 
-__all__ = ["z_products", "stacked_products", "solve_oracle",
+__all__ = ["z_products", "stacked_products", "mesh_products", "solve_oracle",
            "solve_oracle_block", "resolve_block_size", "resolve_warm_start",
            "choose_warm_start", "count_z_passes"]
 
@@ -141,6 +144,42 @@ def stacked_products(Z: torch.Tensor, P: int, *,
             return torch.stack([r(yp) for r, yp in zip(per_rank, y)])
 
     return matvec, rmatvec
+
+
+def mesh_products(Zs, mesh, *, fused: bool = False
+                  ) -> tuple[Callable, Callable]:
+    """(zmv, zrmv) for ranks spread over a mesh's device groups, with
+    ``stacked_products``' contract at home.
+
+    ``Zs[g]`` is group g's ``(P/G*R_pad, K_hat)`` stack on its device.
+    ``zmv(x)`` sends x to every group, runs each group's product on its
+    stream and brings the ``(P/G*R_pad[, s])`` answers home, concatenated
+    as ``(P*R_pad[, s])``; ``zrmv(y)`` sends each group its ``(P/G,
+    R_pad[, s])`` rows of y and returns ``(P, K_hat[, s])`` at home. Every
+    group's work is queued before home waits for any of it.
+    """
+    per = mesh.per_group
+    prods = []
+    for g, Zg in enumerate(Zs):
+        with mesh.group(g):
+            prods.append(stacked_products(Zg, per, fused=fused))
+
+    def gathered(calls):
+        outs = []
+        for g, (call, arg) in enumerate(calls):
+            arg = mesh.to_group(arg, g)
+            with mesh.group(g):
+                outs.append(call(arg))
+        return torch.cat([mesh.to_home(o, g) for g, o in enumerate(outs)])
+
+    def zmv(x):
+        return gathered([(mv, x) for mv, _ in prods])
+
+    def zrmv(y):
+        return gathered([(rmv, y[g * per:(g + 1) * per])
+                         for g, (_, rmv) in enumerate(prods)])
+
+    return zmv, zrmv
 
 
 def solve_oracle(

@@ -1,24 +1,25 @@
-"""ExecutorPool: a serving tier of executors, one device each.
+"""ExecutorPool: a serving tier of executors, one device or mesh each.
 
 The port of ``src/repro/engine/pool.py``. ``StreamScheduler`` pipelines many
 tensors through one ``HooiExecutor``; the serving regime (many small
 independent decomposition streams) needs several executors running at
-once, each on its own device, with streams routed across them.
+once, each on devices of its own, with streams routed across them.
 
 This module is the resource layer of that tier:
 
-* ``device_slices(n, P)`` gives ``n`` lanes one device each. The reference
-  cuts ``n`` disjoint ``P``-device slices out of its mesh; here a lane
-  stacks its P ranks on one device, so ``n`` lanes need ``n`` distinct
-  devices. Executors never share a CUDA device, so their sweeps overlap
-  instead of time-slicing one card.
+* ``device_slices(n, P)`` gives ``n`` lanes their devices. The reference
+  cuts ``n`` disjoint ``P``-device slices out of its devices; here a lane
+  is one device, on which it stacks its P ranks, or a list of devices, a
+  ``distributed.mesh.RankMesh`` of device groups (a device may repeat
+  within one lane's list). No CUDA device serves two lanes, so their
+  sweeps overlap instead of time-slicing one card.
 
 * ``ExecutorPool`` owns ``n`` **lanes**. A lane is one ``HooiExecutor`` on
-  its device (its own step and upload caches) plus one ``StreamScheduler``
-  (its own producer pool and consumer thread): the per-lane pipeline is
-  exactly the single-executor pipeline, so every scheduler contract
-  (submission order, refresh ladder, a rerun with 0 compilations, captures
-  and uploads) holds per lane unchanged.
+  its device or mesh (its own step and upload caches) plus one
+  ``StreamScheduler`` (its own producer pool and consumer thread): the
+  per-lane pipeline is exactly the single-executor pipeline, so every
+  scheduler contract (submission order, refresh ladder, a rerun with 0
+  compilations, captures and uploads) holds per lane unchanged.
 
 * ``PoolStats`` aggregates the per-stream accounting every run already
   lands in ``DistHooiStats`` (queue wait, prepare/sweep seconds, SLO
@@ -38,7 +39,7 @@ from typing import TYPE_CHECKING, Sequence
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import indexed_device
 from repro_torch.engine.scheduler import StreamScheduler
 
 if TYPE_CHECKING:  # runtime import is deferred: executor imports the engine
@@ -47,32 +48,27 @@ if TYPE_CHECKING:  # runtime import is deferred: executor imports the engine
 __all__ = ["ExecutorPool", "PoolLane", "PoolStats", "device_slices"]
 
 
-def _lane_device(d) -> torch.device:
-    """``d`` as a device with an explicit index: ``"cuda"`` means the
-    current CUDA device, which ``"cuda:0"`` may name too."""
-    dev = resolve_device(d)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def device_slices(n_executors: int, P_ranks: int, devices=None) -> list:
-    """One single-device slice per lane: ``n_executors`` lists of one
-    ``torch.device`` each (the reference's return shape).
+    """The devices of each lane: ``n_executors`` lists of ``torch.device``
+    (the reference's return shape).
 
     ``devices=None`` means every CUDA device, ``cuda:0`` to
-    ``cuda:{count-1}``; the first ``n_executors`` are used. Raises
-    ``ValueError`` when there are fewer devices than lanes (no lane falls
+    ``cuda:{count-1}``, one per lane; the first ``n_executors`` are used
+    (lanes of P cards, as the reference's, would need n*P of them). An
+    entry of ``devices`` is one device, on which the lane stacks its P
+    ranks, or a list of G devices (G dividing ``P_ranks``), the lane's
+    mesh of device groups; a device may repeat within one lane's list.
+    Raises
+    ``ValueError`` when there are fewer entries than lanes (no lane falls
     back to the CPU) and when two lanes would share a CUDA device: a pool
     whose executors silently shared a card would report overlap that the
     hardware never delivers. ``"cuda"`` is read as the current CUDA device
     before that check, so ``["cuda", "cuda:0"]`` is a duplicate.
 
-    ``"cpu"`` may repeat in ``devices``: the CPU lanes stand in for the
+    ``"cpu"`` may serve several lanes: the CPU lanes stand in for the
     reference's simulated host devices, which torch has no counterpart to,
-    so ``devices=["cpu"] * n`` gives ``n`` lanes on the plain PyTorch path.
-    ``P_ranks`` is checked, not used: each lane stacks its ranks on its
-    device.
+    so ``devices=["cpu"] * n`` gives ``n`` lanes on the plain PyTorch path
+    (and ``[["cpu"] * G] * n`` n lanes of G groups each).
     """
     n, P = int(n_executors), int(P_ranks)
     if n < 1 or P < 1:
@@ -80,24 +76,31 @@ def device_slices(n_executors: int, P_ranks: int, devices=None) -> list:
                          f"got {n_executors} x {P_ranks}")
     if devices is None:
         count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        devs = [torch.device("cuda", i) for i in range(count)]
+        lanes = [[torch.device("cuda", i)] for i in range(count)]
     else:
-        devs = [_lane_device(d) for d in devices]
-    if len(devs) < n:
+        lanes = [[indexed_device(d) for d in entry]
+                 if isinstance(entry, (list, tuple))
+                 else [indexed_device(entry)] for entry in devices]
+    if len(lanes) < n:
         raise ValueError(
-            f"pool of {n} lanes (P={P} ranks stacked on each lane's device) "
-            f"needs {n} devices, have {len(devs)}: shrink the pool, or pass "
-            "devices=['cpu'] * n for lanes on the CPU")
-    devs = devs[:n]
-    cards = [d for d in devs if d.type == "cuda"]
+            f"pool of {n} lanes (P={P} ranks on each lane's device or "
+            f"mesh) needs {n} devices, have {len(lanes)}: shrink the pool, "
+            "or pass devices=['cpu'] * n for lanes on the CPU")
+    lanes = lanes[:n]
+    for lane in lanes:
+        if not lane or P % len(lane):
+            raise ValueError(f"a lane of {len(lane)} device groups does "
+                             f"not split P={P} ranks evenly: {lane}")
+    cards = [d for lane in lanes for d in dict.fromkeys(lane)
+             if d.type == "cuda"]
     if len(set(cards)) < len(cards):
-        raise ValueError(f"lanes would share a CUDA device: {devs}")
-    return [[d] for d in devs]
+        raise ValueError(f"lanes would share a CUDA device: {lanes}")
+    return lanes
 
 
 @dataclasses.dataclass
 class PoolLane:
-    """One executor + its scheduler pipeline, on its device."""
+    """One executor + its scheduler pipeline, on its device or mesh."""
 
     index: int
     executor: HooiExecutor
@@ -138,12 +141,13 @@ class PoolStats:
 
 
 class ExecutorPool:
-    """``n_executors`` scheduler-fronted executors, one device each.
+    """``n_executors`` scheduler-fronted executors, one device or mesh each.
 
     Construction kwargs after ``core_dims`` are forwarded to every lane's
     ``StreamScheduler`` (scheme, path, n_invocations, drift_tol,
     pad_geometric, ...), so a pool is configured exactly like a single
-    scheduler. ``devices`` is ``device_slices``' (None: every CUDA device).
+    scheduler. ``devices`` is ``device_slices``' (None: every CUDA device);
+    a lane of several devices runs ``HooiExecutor(P, mesh=...)`` over them.
     Use as a context manager (or call ``close``) to stop every lane's
     worker threads.
 
@@ -164,6 +168,7 @@ class ExecutorPool:
         **scheduler_kw,
     ):
         from repro_torch.distributed.executor import HooiExecutor
+        from repro_torch.distributed.mesh import RankMesh
 
         self.P = int(P_ranks)
         self.core_dims = tuple(int(k) for k in core_dims)
@@ -171,7 +176,8 @@ class ExecutorPool:
         self.lanes: list[PoolLane] = []
         try:
             for i, sl in enumerate(slices):
-                ex = HooiExecutor(self.P, sl[0])
+                ex = HooiExecutor(self.P, mesh=RankMesh(self.P, sl)) \
+                    if len(sl) > 1 else HooiExecutor(self.P, sl[0])
                 sched = StreamScheduler(ex, self.core_dims, lane=i,
                                         workers=workers, **scheduler_kw)
                 self.lanes.append(PoolLane(index=i, executor=ex,

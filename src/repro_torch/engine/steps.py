@@ -7,7 +7,9 @@ distributed step, the **comm backend** (``engine.comm``):
 
 * ``make_mode_step_fn`` — one distributed mode step over the P ranks,
   stacked along a leading dimension on one device (the reference wraps the
-  same function in ``shard_map``);
+  same function in ``shard_map``), or with a ``mesh`` of several device
+  groups, each group's ranks stacked on its device: the Z-build and the
+  Z products run per group, everything after them at the mesh's home;
 * ``local_mode_step`` — the same composition with the identity partition
   and no comm space: what ``repro_torch.core.hooi`` runs;
 * ``make_zbuild_step_fn`` — the Z-build alone over the stacked ranks (the
@@ -43,9 +45,9 @@ from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, power_refine,
 from repro_torch.random import Key
 
 from .comm import gather_rows, make_comm_space
-from .oracle import (solve_oracle, solve_oracle_block, stacked_products,
-                     z_products)
-from .zbuild import build_local_z, build_local_z_oracle
+from .oracle import (mesh_products, solve_oracle, solve_oracle_block,
+                     stacked_products, z_products)
+from .zbuild import build_group_z, build_local_z, build_local_z_oracle
 
 __all__ = ["make_mode_step_fn", "make_zbuild_step_fn",
            "make_stochastic_step_fn", "local_mode_step"]
@@ -64,16 +66,25 @@ def _khat(factors: Sequence[torch.Tensor], mode: int) -> int:
     return Khat
 
 
-def make_zbuild_step_fn(ms: dict, precision: str = "f32"):
+def _spread(mesh) -> bool:
+    return mesh is not None and mesh.G > 1
+
+
+def make_zbuild_step_fn(ms: dict, precision: str = "f32", mesh=None):
     """TTM-only step: the stacked ranks' Z build, ``(P*R_pad, K_hat)``.
 
     ``fn(arrs, factors, key) -> Z`` over the arrays of
     ``make_mode_step_fn`` (``coords``, ``values``, ``rows``); ``key`` is
-    unused. The executor's per-phase calibration probe.
+    unused. The executor's per-phase calibration probe. Over a mesh of
+    several groups it returns the groups' Z, each on its device.
     """
     num_rows, mode = ms["P"] * ms["R_pad"], ms["mode"]
 
     def fn(arrs: dict, factors: Sequence[torch.Tensor], key: Key):
+        if _spread(mesh):
+            return tuple(build_group_z(
+                mesh, arrs["groups"], factors, mode, num_rows // mesh.G,
+                precision=precision)[0])
         return build_local_z(arrs["coords"], arrs["values"], arrs["rows"],
                              factors, mode, num_rows, precision=precision)
 
@@ -116,7 +127,8 @@ def make_stochastic_step_fn(mode: int, num_rows: int, K_n: int, niter: int,
     return fn
 
 
-def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int):
+def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int,
+                      mesh=None):
     """One distributed mode step over the stacked ranks.
 
     ``ms`` is the static partition signature (mode, R_pad, Lp, P,
@@ -139,6 +151,15 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int):
     of those factor rows is one stacked ``rmatvec`` (one ``oracle_pair``
     launch for all ranks when fused) and ``rank_sum`` adds the ranks in
     order. The spec builder turns the fused build off for sketch modes.
+
+    With a ``mesh`` of G > 1 device groups (``distributed.mesh``), ``arrs``
+    holds ``groups`` instead of the elements: per group its ranks'
+    ``coords``, ``values`` and ``rows`` (offset by ``p*R_pad`` within the
+    group) on its device. Each group builds its Z (and the fused first
+    panel's product, brought home) and answers its share of every product
+    (``oracle.mesh_products``); the maps, the comm space and the Lanczos
+    body stay at the mesh's home with the stacked layout, so the rest of
+    the step is the stacked one.
     """
     P, R_pad, mode = ms["P"], ms["R_pad"], ms["mode"]
     precision = ms.get("precision", "f32")
@@ -150,17 +171,27 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int):
 
     def fn(arrs: dict, factors: Sequence[torch.Tensor], key: Key):
         Khat = _khat(factors, mode)
-        dev = arrs["values"].device
+        dev = mesh.home if _spread(mesh) else arrs["values"].device
         first_panel = ZV1 = None
         if fused_zbuild:
             first_panel = block_start_panel(key, Khat, block_size, dev)
-            Z, ZV1 = build_local_z_oracle(
-                arrs["coords"], arrs["values"], arrs["rows"], factors, mode,
-                P * R_pad, first_panel, precision=precision)
+        if _spread(mesh):
+            Zs, ZV1 = build_group_z(mesh, arrs["groups"], factors, mode,
+                                    P // mesh.G * R_pad, first_panel,
+                                    precision=precision)
+            zmv, zrmv = mesh_products(Zs, mesh,
+                                      fused=ms.get("use_fused", False))
         else:
-            Z = build_local_z(arrs["coords"], arrs["values"], arrs["rows"],
-                              factors, mode, P * R_pad, precision=precision)
-        zmv, zrmv = stacked_products(Z, P, fused=ms.get("use_fused", False))
+            if fused_zbuild:
+                Z, ZV1 = build_local_z_oracle(
+                    arrs["coords"], arrs["values"], arrs["rows"], factors,
+                    mode, P * R_pad, first_panel, precision=precision)
+            else:
+                Z = build_local_z(arrs["coords"], arrs["values"],
+                                  arrs["rows"], factors, mode, P * R_pad,
+                                  precision=precision)
+            zmv, zrmv = stacked_products(Z, P,
+                                         fused=ms.get("use_fused", False))
         space = make_comm_space(backend, ms, arrs, zmv, zrmv)
         if warm_start == "sketch":
             F_n = factors[mode]

@@ -7,6 +7,9 @@ materializes the (local) penultimate matrix
 its plain version for tensors on the CPU. The device decides, not a flag.
 ``build_local_z_oracle`` is the fused stage: the ``kron_segsum_oracle``
 kernel returns ``(Z, Z @ X)`` for the first block-Lanczos panel X.
+``build_group_z`` runs either on each device group of a
+``distributed.mesh.RankMesh``: one launch per group over its ranks'
+elements, on its device and stream.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from repro_torch import envknobs
 from repro_torch.kernels import ops as kernel_ops
 
-__all__ = ["build_local_z", "build_local_z_oracle", "resolve_precision",
+__all__ = ["build_local_z", "build_local_z_oracle", "build_group_z",
+           "resolve_precision",
            "resolve_fused_zbuild", "PRECISIONS"]
 
 PRECISIONS = envknobs.PRECISIONS
@@ -106,3 +110,45 @@ def build_local_z_oracle(
           else kernel_ops.penultimate_local_oracle)
     return fn(coords, values, local_rows, factors, mode, num_rows, X,
               precision=precision)
+
+
+def build_group_z(
+    mesh,
+    groups: Sequence[dict],
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    num_rows: int,
+    X: torch.Tensor | None = None,
+    *,
+    precision: str = "f32",
+) -> tuple[list[torch.Tensor], torch.Tensor | None]:
+    """Each device group's Z over its ranks' elements, and with a first
+    panel X the panel product at home.
+
+    ``groups[g]`` holds group g's sorted ``coords``, ``values`` and
+    ``rows`` (local rows offset by ``p*R_pad`` within the group);
+    ``num_rows`` is a group's ``P/G*R_pad``. ``factors`` and X lie at home:
+    each group gets the factors its build reads (every one but the mode's,
+    which the build does not read and stays None) and X. Returns the
+    groups' Z, each on its device, and ``Z @ X`` concatenated at home in
+    the stacked layout (None without X).
+    """
+    Zs, ZXs = [], []
+    for g, arrs in enumerate(groups):
+        facs = [None if j == mode else mesh.to_group(f, g)
+                for j, f in enumerate(factors)]
+        Xg = None if X is None else mesh.to_group(X, g)
+        with mesh.group(g):
+            if Xg is None:
+                Zs.append(build_local_z(arrs["coords"], arrs["values"],
+                                        arrs["rows"], facs, mode, num_rows,
+                                        precision=precision))
+            else:
+                Z, ZX = build_local_z_oracle(
+                    arrs["coords"], arrs["values"], arrs["rows"], facs,
+                    mode, num_rows, Xg, precision=precision)
+                Zs.append(Z)
+                ZXs.append(ZX)
+    if X is None:
+        return Zs, None
+    return Zs, torch.cat([mesh.to_home(zx, g) for g, zx in enumerate(ZXs)])

@@ -31,7 +31,10 @@ call then copies the new factors and draws in and replays the segments in
 order, running the host calls between them. A step with no host call is one
 segment; the default block step is two (the SVD cuts it), a sketch step
 four (the seed's QR, the power iteration's QR, the SVD). A failed capture
-raises; nothing falls back to the eager step.
+raises; nothing falls back to the eager step. A step over a mesh of several
+device groups (``distributed.mesh``: its arrays hold ``groups``) is not
+captured: the executor runs it eagerly, and ``StepGraph.capture`` refuses
+it.
 
 Every step of one ``CaptureHome`` shares its memory pool, so replays of
 different steps must not overlap on the card: they are serialized under the
@@ -192,6 +195,11 @@ class StepGraph:
         step and its first outputs (copies)."""
         from repro_torch.random import Key
 
+        if len(arrs.get("groups", ())) > 1:
+            raise ValueError(
+                "a step over several device groups runs eagerly: one "
+                "capture on one stream cannot hold the groups' streams "
+                "(the executor never captures it)")
         dev = home.device
         sg = cls(home, arrs, factors)
         sg.slot = _KeySlot(key)

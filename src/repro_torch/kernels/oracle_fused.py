@@ -13,8 +13,10 @@ raises. The per-call host work is kept small: shape checks on attributes,
 one ``torch.empty`` per output, the current stream's raw handle (the one
 ``torch.cuda.current_stream(dev).cuda_stream`` gives, without building a
 ``Stream`` object on every call; under capture the capturing stream), and
-the kernel's reduction scratch kept here per device and reused (a captured
-step holds the scratch its recorded launches write, ``graphs.keep``).
+the kernel's reduction scratch kept here per stream and reused, so calls on
+different streams of one device (a mesh's device groups) never share it
+(a captured step holds the scratch its recorded launches write,
+``graphs.keep``).
 
 ``oracle_pair.launches`` counts the calls that launched the kernel; a call
 under stream capture records a launch and is not counted.
@@ -34,7 +36,7 @@ __all__ = ["oracle_pair"]
 
 _FN = None
 _GEOMETRY = {}  # (device index, R, K, s, with y) -> (rb, bpr, groups)
-_SCRATCH = {}  # device index -> (part, gpart, ticket), grown on demand
+_SCRATCH = {}  # (device index, stream) -> (part, gpart, ticket), grown
 
 
 def _launcher():
@@ -68,16 +70,19 @@ def _geometry(dev: torch.device, R: int, K: int, s: int, with_y: bool
     return got
 
 
-def _scratch(dev: torch.device, n_part: int, n_gpart: int, n_ticket: int):
-    """Partials, group sums and zeroed tickets, at least these sizes. The
-    kernel leaves its tickets zero, so a buffer is zeroed only when made.
+def _scratch(dev: torch.device, stream: int, n_part: int, n_gpart: int,
+             n_ticket: int):
+    """Partials, group sums and zeroed tickets of ``stream`` (a raw
+    handle), at least these sizes; calls stream-ordered behind each other
+    share them. The kernel leaves its tickets zero, so a buffer is zeroed
+    only when made.
 
     A captured step records the scratch's address, so under capture the
     scratch is handed to the step to keep (``graphs.keep``): a larger call
     replaces it here, and the old buffer lives on as long as the steps that
     write it. It may not grow during a capture (the eager warm-up before it
     grows it at the same shapes)."""
-    have = _SCRATCH.get(dev.index)
+    have = _SCRATCH.get((dev.index, stream))
     capturing = torch.cuda.is_current_stream_capturing()
     if have is None or have[0].numel() < n_part or have[1].numel() < n_gpart \
             or have[2].numel() < n_ticket:
@@ -87,7 +92,7 @@ def _scratch(dev: torch.device, n_part: int, n_gpart: int, n_ticket: int):
         n_part = max(n_part, 0 if have is None else have[0].numel())
         n_gpart = max(n_gpart, 0 if have is None else have[1].numel())
         n_ticket = max(n_ticket, 0 if have is None else have[2].numel())
-        have = _SCRATCH[dev.index] = (
+        have = _SCRATCH[(dev.index, stream)] = (
             torch.empty(n_part, dtype=torch.float32, device=dev),
             torch.empty(n_gpart, dtype=torch.float32, device=dev),
             torch.zeros(n_ticket, dtype=torch.int32, device=dev))
@@ -153,15 +158,15 @@ def oracle_pair(
         return (None if xo is None else xo.zero_(),
                 None if yo is None else yo.zero_())
     rb, bpr, groups = _geometry(dev, R, K, s, y is not None)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     part = gpart = ticket = None
     if y is not None:
         n = K * s
-        part, gpart, ticket = _scratch(dev, nP * bpr * n, nP * groups * n,
-                                       nP * (groups + 1))
+        part, gpart, ticket = _scratch(dev, stream, nP * bpr * n,
+                                       nP * groups * n, nP * (groups + 1))
     rc = _launcher()[0](
         Z.data_ptr(), _ptr(x), _ptr(y), _ptr(xo), _ptr(yo), _ptr(part),
-        _ptr(gpart), _ptr(ticket), R, K, s, nP, rb, bpr,
-        torch._C._cuda_getCurrentRawStream(dev.index))
+        _ptr(gpart), _ptr(ticket), R, K, s, nP, rb, bpr, stream)
     if rc != 0:
         raise RuntimeError(f"oracle_pair launch failed with CUDA error {rc} "
                            f"(R={R}, K={K}, s={s}, P={nP})")

@@ -22,7 +22,8 @@ import torch
 from repro_torch import convert
 from repro_torch.core import hooi, ttm
 from repro_torch.core import plan as port_plan
-from repro_torch.distributed.dist_hooi import HooiExecutor, dist_hooi
+from repro_torch.distributed.dist_hooi import (HooiExecutor, dist_hooi,
+                                               make_ranks_mesh)
 from repro_torch.data.tensors import synth_tensor
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
@@ -451,25 +452,32 @@ def _stacked_call(P, device):
 
 
 def test_oracle_pair_scratch_growth_keeps_replays(cuda):
-    """Growing ``oracle_pair``'s scratch after a capture (a wider call)
-    must not free the buffer the captured step writes: memory taken after
-    the growth stays untouched by the step's replays, which stay bitwise
-    what they were. The step holds the old buffer, which goes with it."""
+    """Growing ``oracle_pair``'s scratch after a capture (a wider call on
+    the capturing stream) must not free the buffer the captured step
+    writes: memory taken after the growth stays untouched by the step's
+    replays, which stay bitwise what they were. The step holds the old
+    buffer, which goes with it. The scratch is per stream: the captures
+    run on the executor's side stream."""
     import gc
     import weakref
 
-    _stacked_call(16, cuda)  # a scratch no earlier call needed
-    held = [(t.data_ptr(), t.numel(), t.dtype)
-            for t in oracle_fused._SCRATCH[0]]
     ex, steps, factors = _captured_case("none", "liteopt")
+    side = ex._home.stream
+    where = (torch.cuda.current_device(), side.cuda_stream)
+    with torch.cuda.stream(side):
+        _stacked_call(16, cuda)  # a scratch no earlier call needed
+    torch.cuda.synchronize()
+    held = [(t.data_ptr(), t.numel(), t.dtype)
+            for t in oracle_fused._SCRATCH[where]]
     arrs, eager, cached = steps[2]
     key = make_key(2).fold_in(1002)
     first = cached(arrs, factors, key)  # captured over that scratch
-    assert [t.data_ptr() for t in oracle_fused._SCRATCH[0]] == \
+    assert [t.data_ptr() for t in oracle_fused._SCRATCH[where]] == \
         [p for p, _, _ in held]
-    _stacked_call(32, cuda)  # replaces it
+    with torch.cuda.stream(side):
+        _stacked_call(32, cuda)  # replaces it
     torch.cuda.synchronize()
-    assert [t.data_ptr() for t in oracle_fused._SCRATCH[0]] != \
+    assert [t.data_ptr() for t in oracle_fused._SCRATCH[where]] != \
         [p for p, _, _ in held]
     kept = [k for up in ex._uploads.values() for g in up.graphs.values()
             for k in g.kept]
@@ -923,3 +931,193 @@ def test_upload_does_not_wait_for_the_current_stream(cuda):
     up.finish()
     assert not torch.cuda.current_stream(cuda).query()
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# ------------------------------------------------------- the rank mesh
+@pytest.fixture
+def two_gpus(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: a mesh over distinct cards")
+    return [torch.device("cuda", i) for i in range(2)]
+
+
+def _geometric_case():
+    """A small tensor and its ``pad_geometric`` plan at P = 4: every
+    group's first element lies at a multiple of the chunk kernel's CHUNK in
+    the stacked arrays, so the groups' Z are the stacked Z's bits."""
+    from repro_torch.kernels.kron_segsum import CHUNK
+
+    t = synth_tensor((300, 200, 250), 200_000, alphas=(1.1, 1.0, 0.9),
+                     seed=5)
+    pl = port_plan.plan(t, "lite", 4, core_dims=(5, 5, 5), path="auto",
+                        pad_geometric=True)
+    assert all(mp.E_pad % CHUNK == 0 for mp in pl.parts)
+    return t, pl
+
+
+MESH_KNOBS = {"fused_block8": dict(lanczos_block=8, fused_zbuild=True),
+              "vector": {}}
+
+
+@pytest.mark.parametrize("knob", sorted(MESH_KNOBS))
+@pytest.mark.parametrize("path", ["baseline", "liteopt"])
+def test_mesh_on_one_card_bitwise_stacked(cuda, path, knob):
+    """``[cuda:0] * G`` meshes (each group on its own stream) give the
+    stacked executor's factors, core and fits bitwise, reruns too, with
+    the group path's launches: one Z-build and one ``oracle_pair`` a
+    group a product, each on its group's stream and current device. The
+    stacked run is eager, as a mesh's steps run (a captured step may round
+    apart from the same step run eagerly)."""
+    from repro_torch.kernels import ops as kops
+
+    t, pl = _geometric_case()
+    kw = dict(n_invocations=2, path=path, seed=4, use_fused_oracle=True,
+              **MESH_KNOBS[knob])
+    stacked = HooiExecutor(4)
+    stacked._home = None  # its captures off
+    want_dec, want = stacked.run(t, (5, 5, 5), pl, **kw)
+    seen = []
+
+    def spy(real):
+        def call(*a, **k):
+            t0 = a[0]
+            seen.append((torch.cuda.current_device(), t0.device.index,
+                         torch.cuda.current_stream().cuda_stream))
+            return real(*a, **k)
+        return call
+
+    for G in (2, 4):
+        mesh = make_ranks_mesh(4, devices=[cuda] * G)
+        ex = HooiExecutor(4, mesh=mesh)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(kops, "kron_segsum_gather",
+                       spy(kops.kron_segsum_gather))
+            mp.setattr(kops, "_oracle_pair_kernel",
+                       spy(kops._oracle_pair_kernel))
+            seen.clear()
+            dec, st = ex.run(t, (5, 5, 5), pl, **kw)
+        again_dec, again = ex.run(t, (5, 5, 5), pl, **kw)
+        torch.cuda.synchronize()
+        assert (st.groups, st.step_captures, again.step_compilations,
+                again.uploads) == (G, 0, 0, 0)
+        assert st.fits == want.fits == again.fits
+        for a, b, c in zip(dec.factors, want_dec.factors,
+                           again_dec.factors):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        assert torch.equal(dec.core, want_dec.core)
+        streams = {s.cuda_stream for s in mesh.streams}
+        home = torch.cuda.current_stream().cuda_stream
+        assert all(cur == dev for cur, dev, _ in seen)
+        # every launch on a group's stream, and each group launched, but
+        # the core's build over the full COO at home
+        assert {s for _, _, s in seen} == streams | {home}
+        assert st.group_bytes > 0
+
+
+def _load_mesh_kernels(dev, n: int) -> None:
+    """The kernels the mesh-ordering tests queue, launched once first (a
+    first launch may wait for the device)."""
+    torch.cuda._sleep(1)
+    x = torch.ones(n, device=dev)
+    x.sum()
+    torch.zeros(n, device=dev)
+    torch.full((n,), 3.0, device=dev).fill_(1.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("hazard", ["read_before_write", "block_reused"])
+@pytest.mark.parametrize("direction", ["to_home", "to_group"])
+def test_mesh_crossing_is_ordered(cuda, direction, hazard):
+    """What one group writes and another reads crosses through ``to_home``
+    or ``to_group``: the reader waits for the writer's stream (else it
+    reads before the write lands) and the block is marked read on the
+    reader's stream (else the writer's stream hands it out again while the
+    read is still queued). The side that must wait is held busy."""
+    n = 1 << 20
+    mesh = make_ranks_mesh(2, devices=[cuda] * 2)
+    _load_mesh_kernels(cuda, n)
+    writer, reader = (1, None) if direction == "to_home" else (None, 1)
+
+    def on(side):  # group 1 or home (the current stream)
+        return mesh.group(side) if side is not None \
+            else contextlib.nullcontext()
+
+    if hazard == "read_before_write":
+        with on(writer):
+            x = torch.full((n,), 3.0, device=cuda)
+            torch.cuda._sleep(200_000_000)  # the write of the 1s waits
+            x.fill_(1.0)
+        got = mesh.to_home(x, 1) if direction == "to_home" \
+            else mesh.to_group(x, 1)
+        with on(reader):
+            total = got.sum()
+    else:
+        with on(writer):
+            x = torch.ones(n, device=cuda)
+        with on(reader):
+            torch.cuda._sleep(200_000_000)  # the read waits
+        got = mesh.to_home(x, 1) if direction == "to_home" \
+            else mesh.to_group(x, 1)
+        with on(reader):
+            total = got.sum()
+        del x, got  # free while the read still waits to run
+        with on(writer):
+            torch.zeros(n, device=cuda)  # would take the freed block
+    torch.cuda.synchronize()
+    assert total.item() == n
+
+
+def test_mesh_over_two_cards(two_gpus):
+    """A mesh over distinct cards: each group's arrays on its card, its
+    launches there, the run bitwise the stacked one on cuda:0."""
+    t, pl = _geometric_case()
+    kw = dict(n_invocations=2, path="liteopt", seed=4, lanczos_block=8,
+              fused_zbuild=True, use_fused_oracle=True)
+    stacked = HooiExecutor(4, two_gpus[0])
+    stacked._home = None  # eager, as the mesh's steps
+    want_dec, want = stacked.run(t, (5, 5, 5), pl, **kw)
+    ex = HooiExecutor(4, mesh=make_ranks_mesh(4, devices=two_gpus))
+    dec, st = ex.run(t, (5, 5, 5), pl, **kw)
+    up = ex._uploads[pl]
+    for m in up.arrs:
+        for g, ga in enumerate(m["groups"]):
+            assert all(a.device == two_gpus[g] for a in ga.values())
+    assert st.fits == want.fits
+    assert all(torch.equal(a, b) for a, b in zip(dec.factors,
+                                                 want_dec.factors))
+    _, again = ex.run(t, (5, 5, 5), pl, **kw)
+    assert again.fits == st.fits and again.uploads == 0
+
+
+def test_hooi_on_another_card_from_a_thread(two_gpus):
+    """Single-process ``hooi(device="cuda:1")`` from a thread whose
+    current device is ``cuda:0`` launches every kernel on cuda:1 with
+    cuda:1 current, and gives the fits of the same run on cuda:0."""
+    import concurrent.futures
+
+    from repro_torch.kernels import ops as kops
+
+    t = synth_tensor((60, 50, 40), 20_000, seed=3)
+    want = hooi.hooi(t, (5, 5, 5), n_invocations=2, device=two_gpus[0],
+                     use_fused_oracle=True)[1]
+    seen = []
+
+    def spy(real):
+        def call(*a, **k):
+            seen.append((torch.cuda.current_device(), a[0].device.index))
+            return real(*a, **k)
+        return call
+
+    def run():
+        torch.cuda.set_device(0)
+        return hooi.hooi(t, (5, 5, 5), n_invocations=2, device="cuda:1",
+                         use_fused_oracle=True)[1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kops, "kron_segsum_gather", spy(kops.kron_segsum_gather))
+        mp.setattr(kops, "_oracle_pair_kernel",
+                   spy(kops._oracle_pair_kernel))
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            got = pool.submit(run).result(timeout=300)
+    assert seen and all(s == (1, 1) for s in seen)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -64,6 +64,20 @@ def test_pool_router_and_examples_are_covered():
                 "ARRAY_FIELDS"} & set(engine.__all__)
 
 
+def test_mesh_is_covered():
+    """The rank mesh is among the modules the import checks load without
+    ``jax``/``repro``, and the entry points export it as the reference's
+    ``dist_hooi`` does."""
+    assert "repro_torch.distributed.mesh" in set(_modules())
+    from repro_torch import distributed, engine
+    from repro_torch.distributed import dist_hooi, executor
+
+    assert {"RankMesh", "make_ranks_mesh"} <= set(distributed.__all__)
+    assert "make_ranks_mesh" in dist_hooi.__all__
+    assert "make_ranks_mesh" in executor.__all__
+    assert {"mesh_products", "build_group_z"} <= set(engine.__all__)
+
+
 def test_serve_pool_example_runs_on_cpu(capsys):
     """``python -m repro_torch.examples.serve_pool --device cpu`` at its
     own size: two CPU lanes, sticky warm resubmits, a warm-start reroute."""
