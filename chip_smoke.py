@@ -133,10 +133,17 @@ Phases, each fatal on failure (nothing is caught):
     straddle a chunk at a group's start); the stacked boundary run also
     timed eagerly; a rerun bitwise with 0 uploads and 0 compilations;
     fits, steady seconds per sweep, launches per sweep, bytes between
-    groups per sweep beside ``comm_model``'s, peak memory; every group's
-    arrays on its device, every kernel launch with its group's device
-    current and on its group's stream; with two or more cards a mesh over
-    distinct cards too (else the skip is logged);
+    groups per sweep by kind (``"u"``: the comm space and the Lanczos
+    body; ``"factors"``) beside ``comm_model``'s and beside what the run
+    moved with its u-space at home (psum's accounting: a psum run moves
+    exactly that, a boundary run, its u-space sharded over the groups,
+    must move less, its ``"u"`` bytes exactly ``modeled_u_bytes``), peak
+    memory; every group's arrays on its device, every kernel launch with
+    its group's device current and on its group's stream, every u-space
+    shard (``GroupTensor`` part) on its group's device and made on its
+    group's stream; the device ops one boundary invocation dispatches
+    (``mesh_census``), stacked eager and per mesh; with two or more cards
+    a mesh over distinct cards too (else the skip is logged);
 19. the same on phase 17's geometric-pad reselect plan (E_pad 2^25, every
     group's first element at a multiple of CHUNK), after the pool, against
     a fresh stacked executor: every run bitwise.
@@ -1908,6 +1915,51 @@ def kernel_spies(seen: list):
             (ops, "_oracle_pair_kernel", spy(ops._oracle_pair_kernel))]
 
 
+def shard_spy(seen: list):
+    """A patch for ``GroupTensor.__init__``: each u-space value made
+    records its parts' devices and the streams they were made on."""
+    from repro_torch.distributed.mesh import GroupTensor
+
+    real = GroupTensor.__init__
+
+    def init(self, *a, **k):
+        real(self, *a, **k)
+        seen.append((tuple(p.device for p in self.parts), self.made_on))
+
+    return GroupTensor, "__init__", init
+
+
+def unsharded_group_bytes(ex, pl, shape, path: str, knobs: dict) -> int:
+    """Bytes per sweep between a mesh's groups with the u-space at home:
+    each non-home group gets the factors its Z-build reads, and per
+    product ``x`` (or its ranks' rows of ``y``) out and its ``(P/G*R_pad)``
+    (or ``(P/G, K_hat)``) answer home, the fused first panel out and its
+    product home, the sketch's gathered factor rows out and partials home.
+    What a psum run moves, and what a boundary run moved before its
+    u-space was sharded."""
+    from repro_torch.core.sketch import DEFAULT_POWER_ITERS
+
+    specs = ex._mode_specs(pl, CORE, path,
+                           block_size=knobs.get("lanczos_block", 1),
+                           fused_zbuild=knobs.get("fused_zbuild", False),
+                           warm_start=knobs.get("warm_start", "none"))
+    G = ex.mesh.G
+    q = DIST_P // G
+    eff = [min(k, L) for k, L in zip(CORE, shape)]
+    words = 0
+    for n, (mp, sp) in enumerate(zip(pl.parts, specs)):
+        khat = int(np.prod([e for j, e in enumerate(eff) if j != n]))
+        sketch = sp.warm_start == "sketch"
+        words += sum(L * k for j, (L, k) in enumerate(zip(shape, eff))
+                     if j != n)
+        products = sp.niter + (DEFAULT_POWER_ITERS if sketch else 0)
+        words += products * sp.block_size * (khat + q * mp.R_pad)  # Z @ x
+        words += products * sp.block_size * q * (mp.R_pad + khat)  # Zᵀ @ y
+        if sketch:
+            words += min(sp.block_size, eff[n]) * q * (mp.R_pad + khat)
+    return 4 * (G - 1) * words
+
+
 def core_share(t, core) -> float:
     """‖G‖²/‖T‖², summed in f64."""
     tt = getattr(t, "_true_norm2", None)
@@ -1951,10 +2003,12 @@ def mesh_run(ex, t, pl, label: str, path: str, kw: dict, mesh=None):
     import torch
 
     seen: list = []
+    shards: list = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    patches = kernel_spies(seen) if mesh is not None else []
+    patches = kernel_spies(seen) + [shard_spy(shards)] \
+        if mesh is not None else []
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:
         setattr(mod, name, fn)
@@ -1971,7 +2025,9 @@ def mesh_run(ex, t, pl, label: str, path: str, kw: dict, mesh=None):
     sweeps = len(st.fits)
     rec = {"stats": st, "launches": launches, "peak_bytes": peak,
            "steady_s": float(np.mean(st.sweep_s[1:] or st.sweep_s)),
-           "group_bytes_per_sweep": st.group_bytes / sweeps}
+           "group_bytes_per_sweep": st.group_bytes / sweeps,
+           "u_bytes_per_sweep": st.group_bytes_u / sweeps,
+           "factor_bytes_per_sweep": st.group_bytes_factors / sweeps}
     check_fits(st.fits, label)
     if mesh is not None:
         streams = {s.cuda_stream for s in mesh.streams}
@@ -1988,6 +2044,36 @@ def mesh_run(ex, t, pl, label: str, path: str, kw: dict, mesh=None):
             if launches[name] <= 0:
                 raise AssertionError(f"{name} not launched on the mesh "
                                      f"path ({label})")
+        knobs = dict(args, **kw)
+        knobs.pop("use_fused_oracle", None)
+        knobs.pop("seed", None)
+        rec["unsharded_bytes_per_sweep"] = unsharded_group_bytes(
+            ex, pl, t.shape, path, knobs)
+        sharded = set(st.comm_backends.values()) == {"boundary"}
+        off = [(devs, made) for devs, made in shards
+               if devs != mesh.devices or made != tuple(
+                   s.cuda_stream for s in mesh.streams)]
+        if off or sharded != bool(shards):
+            raise AssertionError(
+                f"{label}: {len(shards)} u-space values, {len(off)} with a "
+                f"part off its group's device or stream: {off[:2]}")
+        rec["u_shards"] = len(shards)
+        if sharded:
+            modeled = sum(ex.modeled_u_bytes(pl, CORE, path=path,
+                                             **knobs).values())
+            rec["modeled_u_bytes_per_sweep"] = modeled
+            if st.group_bytes_u != modeled * sweeps or \
+                    rec["group_bytes_per_sweep"] >= \
+                    rec["unsharded_bytes_per_sweep"]:
+                raise AssertionError(
+                    f"{label}: u bytes {st.group_bytes_u} against the "
+                    f"formula's {modeled * sweeps}, {st.group_bytes} bytes "
+                    f"in all against {rec['unsharded_bytes_per_sweep']} a "
+                    f"sweep with the u-space at home")
+        elif st.group_bytes != rec["unsharded_bytes_per_sweep"] * sweeps:
+            raise AssertionError(
+                f"{label}: psum moved {st.group_bytes} bytes, not "
+                f"{rec['unsharded_bytes_per_sweep'] * sweeps}")
     log(f"mesh {label}: groups={st.groups} fits={st.fits} "
         f"sweeps={[round(x, 4) for x in st.sweep_s]} "
         f"steady_s_per_sweep={rec['steady_s']:.4f} setup_s={st.setup_s:.4f} "
@@ -1995,8 +2081,39 @@ def mesh_run(ex, t, pl, label: str, path: str, kw: dict, mesh=None):
         f"uploads={st.uploads} launches per sweep "
         + str({k: v / sweeps for k, v in launches.items()})
         + f" group_bytes per sweep {rec['group_bytes_per_sweep']:.0f} "
+        f"(u {rec['u_bytes_per_sweep']:.0f}, factors "
+        f"{rec['factor_bytes_per_sweep']:.0f}) "
         f"max_memory_allocated={peak / 2**30:.3f} GiB")
     return (dec, st), rec
+
+
+def mesh_census(ex, t, pl, label: str, device_type: str = "cuda") -> dict:
+    """The device ops one invocation (one sweep, the core and the fit) of
+    the ``fused_block8`` boundary run on ``ex`` issues: aten ops that are
+    not views and return a tensor on ``device_type``, counted as they are
+    dispatched (about one launch each; the port's own kernels are the
+    launch counts)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and any(
+                    isinstance(o, torch.Tensor) and o.device.type ==
+                    device_type for o in tree_leaves(out)):
+                Count.ops += 1
+            return out
+
+    args = {k: v for k, v in dist_kwargs().items() if k != "device"}
+    with Count():
+        ex.run(t, CORE, pl, n_invocations=1, path="liteopt", **args)
+    out = {"device_ops": Count.ops}
+    log(f"census {label}: one invocation {out}")
+    return out
 
 
 def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
@@ -2008,10 +2125,14 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
     of the chunk kernel's CHUNK) and else bitwise or within the f32 bars;
     a rerun bitwise with 0 uploads and 0 compilations; every group's
     arrays on its device; every kernel launch with its group's device
-    current and on its group's stream. The stacked runs are also timed
-    captured, and held to the eager ones (bitwise or the f32 bars: a
-    captured step may round apart from the same step run eagerly). With
-    two or more cards, a mesh over distinct cards too."""
+    current and on its group's stream, every u-space shard on its
+    group's device and stream; bytes between groups by kind, a boundary
+    run's ``"u"`` bytes the formula's and its total below what it moved
+    with the u-space at home, a psum run's that amount exactly. The
+    stacked runs are also timed captured, and held to the eager ones
+    (bitwise or the f32 bars: a captured step may round apart from the
+    same step run eagerly). With two or more cards, a mesh over distinct
+    cards too. Ends with one ``mesh bytes`` JSON line of every run."""
     import torch
     from repro_torch.distributed.dist_hooi import (HooiExecutor,
                                                    make_ranks_mesh)
@@ -2028,7 +2149,8 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
     if bitwise and not aligned:
         raise AssertionError(f"{name} plan: groups would not start at a "
                              "chunk boundary")
-    out = {"runs": {}, "comm": comm, "captured": {}, "stacked": {}}
+    out = {"runs": {}, "comm": comm, "captured": {}, "stacked": {},
+           "census": {}}
     stacked = stacked_ex if stacked_ex is not None else HooiExecutor(DIST_P)
     for label, path, kw in MESH_RUNS:
         out["captured"][label] = mesh_run(
@@ -2043,6 +2165,8 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
                                       f"stacked captured {label}", False)
             log(f"stacked captured {label} ({name}) against eager: "
                 f"{verdict}")
+        out["census"]["stacked eager"] = mesh_census(
+            stacked, t, pl, f"stacked eager boundary ({name})")
     finally:
         stacked._home = home
     meshes = [(f"G={G}", [torch.device("cuda", 0)] * G) for G in MESH_GROUPS]
@@ -2081,12 +2205,19 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
                 f"{out['stacked'][label][1]['steady_s']:.4f} s and captured "
                 f"{out['captured'][label][1]['steady_s']:.4f} s; bytes "
                 f"between groups per sweep "
-                f"{rec['group_bytes_per_sweep']:.0f} (comm_model: baseline "
-                f"{comm['baseline_bytes']:.0f}, liteopt "
-                f"{comm['liteopt_bytes']:.0f})")
+                f"{rec['group_bytes_per_sweep']:.0f}: u "
+                f"{rec['u_bytes_per_sweep']:.0f} (formula "
+                f"{rec.get('modeled_u_bytes_per_sweep', '-')}), factors "
+                f"{rec['factor_bytes_per_sweep']:.0f}; with the u-space at "
+                f"home {rec['unsharded_bytes_per_sweep']}; "
+                f"{rec['u_shards']} u-space values on their groups "
+                f"(comm_model: baseline {comm['baseline_bytes']:.0f}, "
+                f"liteopt {comm['liteopt_bytes']:.0f})")
             if got[1].step_captures or got[1].graph_replays:
                 raise AssertionError(f"{mlabel}: a mesh step was captured")
             out["runs"][f"{mlabel} {label}"] = rec
+        out["census"][mlabel] = mesh_census(
+            ex, t, pl, f"{mlabel} boundary ({name})")
         label, path, kw = MESH_RUNS[1]
         first = results[label][0]
         again, _ = mesh_run(ex, t, pl, f"{mlabel} {label} rerun ({name})",
@@ -2102,6 +2233,17 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
         del ex, up, results, first, again
         gc.collect()
         torch.cuda.empty_cache()
+    print("mesh bytes " + json.dumps({"plan": name, "runs": {
+        k: {"bytes": r["group_bytes_per_sweep"],
+            "u": r["u_bytes_per_sweep"],
+            "factors": r["factor_bytes_per_sweep"],
+            "u_formula": r.get("modeled_u_bytes_per_sweep"),
+            "u_space_at_home": r["unsharded_bytes_per_sweep"],
+            "steady_s": r["steady_s"], "verdict": r["verdict"]}
+        for k, r in out["runs"].items()},
+        "census": out["census"],
+        "liteopt_bytes": comm["liteopt_bytes"],
+        "baseline_bytes": comm["baseline_bytes"]}), flush=True)
     return out
 
 

@@ -9,12 +9,17 @@ two-pass reorthogonalization to keep float32 stable.
 
 The u-space (left/row space) is replicated (``axis=None``) or *sharded*
 over ranks. The reference shards it over a mesh axis and ``psum``s its inner
-products; here the P ranks are stacked along a leading dimension, so
-``axis=P``, a u-space vector is a ``(P, dim_u)`` tensor, and every u-space
-inner product is a per-rank sum followed by ``rank_sum`` over the ranks in
-rank order. Each rank draws its own breakdown-restart and completion
-directions along the reference's ``fold_in(…, axis_index)``: the paths
-``+(17, p)`` and ``+(1, p)``. The v-space (K̂) is always replicated.
+products (``_space_reduce``); here the P ranks are stacked along a leading
+dimension, so ``axis=P``, a u-space vector is a ``(P, dim_u)`` tensor, and
+every u-space inner product is a per-rank sum followed by ``rank_sum`` over
+the ranks in rank order. Over the device groups of a mesh
+(``distributed.mesh``), ``axis`` is the ``RankMesh``: a u-space value is a
+``GroupTensor`` of one ``(P/G, dim_u)`` part per group, each rank's partial
+is taken on its group (in the stacked layout, so it is the stacked run's
+bits), and the partials come home to the same ``rank_sum``. Each rank draws
+its own breakdown-restart and completion directions along the reference's
+``fold_in(…, axis_index)``: the paths ``+(17, p)`` and ``+(1, p)``. The
+v-space (K̂) is always replicated, at the mesh's home.
 
 The reference's ``fori_loop`` is a Python loop here, and every
 data-dependent choice (breakdown restarts) is a ``torch.where`` on device
@@ -30,6 +35,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import GroupTensor, RankMesh
 from repro_torch.graphs import host_call, upload
 from repro_torch.random import Key, make_key
 
@@ -84,8 +90,85 @@ class _Space:
         return torch.stack([key.fold_in(p).normal((dim, cols), device)
                             for p in range(self.axis)])
 
-    def rows(self, dim: int) -> tuple[int, ...]:
-        return (dim,) if self.axis is None else (self.axis, dim)
+    def zeros(self, dim: int, tail: tuple, device: torch.device
+              ) -> torch.Tensor:
+        """A zero value of ``dim`` rows (per rank when sharded) and
+        trailing shape ``tail``."""
+        rows = (dim,) if self.axis is None else (self.axis, dim)
+        return torch.zeros(rows + tuple(tail), dtype=torch.float32,
+                           device=device)
+
+
+class _MeshSpace(_Space):
+    """The u-space of a mesh's boundary backend: ``GroupTensor`` values,
+    each rank's partial taken on its group's frame (so it is the stacked
+    ``_Space``'s, bit for bit), the partials home, ``rank_sum`` in rank
+    order. The port of the reference's ``_space_reduce`` over the mesh
+    axis; the results (scalars, coefficients) are home values."""
+
+    def __init__(self, mesh: RankMesh):
+        super().__init__(mesh.P)
+        self.mesh = mesh
+
+    def _sum_home(self, partial) -> torch.Tensor:
+        """``rank_sum`` at home of ``partial(g, lo, hi)``, each group's
+        ranks' partials, made on the group."""
+        mesh = self.mesh
+
+        def make(g):
+            r = mesh.ranks_of(g)
+            return partial(g, r.start, r.stop)
+
+        parts = GroupTensor.build(mesh, make)
+        return rank_sum(parts.home())
+
+    def dot(self, a: GroupTensor, b: GroupTensor) -> torch.Tensor:
+        P = self.axis
+
+        def partial(g, lo, hi):
+            pa, pb = a.parts[g], b.parts[g]
+            prod = pa.new_zeros((P,) + tuple(pa.shape[1:]))
+            torch.mul(pa, pb, out=prod[lo:hi])
+            return prod.reshape(P, -1).sum(1)[lo:hi]
+
+        return self._sum_home(partial)
+
+    def proj(self, basis: GroupTensor, u: GroupTensor) -> GroupTensor:
+        def partial(g, lo, hi):
+            B, x = basis.frame(g), u.frame(g)
+            if u.dim() == 2:  # (P, d) vector
+                return (B.mT @ x.unsqueeze(-1)).squeeze(-1)[lo:hi]
+            return (B.mT @ x)[lo:hi]
+
+        return basis @ self._sum_home(partial)
+
+    def normal(self, key: Key, dim: int, cols: int,
+               device: torch.device | None = None) -> GroupTensor:
+        """Each rank's ``+(p,)`` draws, made on its group's device."""
+        mesh = self.mesh
+
+        def make(g):
+            dev = mesh.devices[g]
+            f = torch.zeros((mesh.P, dim, cols), dtype=torch.float32,
+                            device=dev)
+            for p in mesh.ranks_of(g):
+                f[p] = key.fold_in(p).normal((dim, cols), dev)
+            return f
+
+        return GroupTensor.build(mesh, make, framed=True)
+
+    def zeros(self, dim: int, tail: tuple,
+              device: torch.device | None = None) -> GroupTensor:
+        mesh = self.mesh
+        return GroupTensor.build(mesh, lambda g: torch.zeros(
+            (mesh.P, dim) + tuple(tail), dtype=torch.float32,
+            device=mesh.devices[g]), framed=True)
+
+
+def _space(axis) -> _Space:
+    """The space of ``axis``: None (replicated), P stacked ranks, or a
+    ``RankMesh`` of device groups."""
+    return _MeshSpace(axis) if isinstance(axis, RankMesh) else _Space(axis)
 
 
 def lanczos_niter(k: int, nrows: int, ncols: int, block_size: int = 1) -> int:
@@ -140,20 +223,21 @@ def gk_bidiag(
     ncols: int,
     niter: int,
     key: Key,
-    axis: int | None = None,
+    axis: int | RankMesh | None = None,
     *,
     device: str | torch.device | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The GK bidiagonalization body. Returns ``(U, B)`` with ``B`` upper
     bidiagonal: ``Z V = U B``. ``dim_u`` is the per-rank u-space dimension
-    when ``axis`` (the number of stacked ranks) is given; ``U`` is then
-    ``(axis, dim_u, niter)``. ``device`` is where the oracle's vectors live
-    (default: the card)."""
+    when ``axis`` (the number of stacked ranks, or a mesh) is given; ``U``
+    is then ``(axis, dim_u, niter)`` (a ``GroupTensor`` over a mesh).
+    ``device`` is where the oracle's v-space vectors live (default: the
+    card)."""
     dev = resolve_device(device)
-    us, vs = _Space(axis), _Space(None)
+    us, vs = _space(axis), _Space(None)
     f32 = torch.float32
     V = torch.zeros((ncols, niter), dtype=f32, device=dev)
-    U = torch.zeros(us.rows(dim_u) + (niter,), dtype=f32, device=dev)
+    U = us.zeros(dim_u, (niter,), dev)
     alphas = torch.zeros((niter,), dtype=f32, device=dev)
     betas = torch.zeros((niter,), dtype=f32, device=dev)
 
@@ -162,7 +246,7 @@ def gk_bidiag(
     v = key.fold_in(3).normal((ncols,), dev)
     v = v / (torch.linalg.norm(v) + _EPS)
 
-    u_prev = torch.zeros(us.rows(dim_u), dtype=f32, device=dev)
+    u_prev = us.zeros(dim_u, (), dev)
     beta_prev = torch.zeros((), dtype=f32, device=dev)
     scale = torch.full((), _EPS, dtype=f32, device=dev)
     for i in range(niter):
@@ -239,7 +323,7 @@ def gk_block_bidiag(
     niter: int,
     block_size: int,
     key: Key,
-    axis: int | None = None,
+    axis: int | RankMesh | None = None,
     first_panel: torch.Tensor | None = None,
     first_product: torch.Tensor | None = None,
     *,
@@ -259,7 +343,7 @@ def gk_block_bidiag(
     ``Z @ V_1`` it already computed, which replaces the first ``matvec``.
     """
     dev = resolve_device(device)
-    us, vs = _Space(axis), _Space(None)
+    us, vs = _space(axis), _Space(None)
     f32 = torch.float32
     s = int(block_size)
     m = int(niter)
@@ -270,12 +354,12 @@ def gk_block_bidiag(
     if first_panel is None:
         first_panel = block_start_panel(key, ncols, s, dev)
 
-    U = torch.zeros(us.rows(dim_u) + (total,), dtype=f32, device=dev)
+    U = us.zeros(dim_u, (total,), dev)
     V = torch.zeros((ncols, total), dtype=f32, device=dev)
     B = torch.zeros((total, total), dtype=f32, device=dev)
 
     Vi = first_panel
-    Uprev = torch.zeros(us.rows(dim_u) + (s,), dtype=f32, device=dev)
+    Uprev = us.zeros(dim_u, (s,), dev)
     Bprev = torch.zeros((s, s), dtype=f32, device=dev)
     scale = torch.full((), _EPS, dtype=f32, device=dev)
     for i in range(m):
@@ -299,10 +383,10 @@ def gk_block_bidiag(
 
 
 def _complete_columns(left: torch.Tensor, m: int, key: Key,
-                      axis: int | None) -> torch.Tensor:
+                      axis: int | RankMesh | None) -> torch.Tensor:
     """Append ``m`` orthonormal columns to ``left`` (rank-deficient edge),
     column by column with CGS2 and the space's global inner products."""
-    space = _Space(axis)
+    space = _space(axis)
     extra = space.normal(key.fold_in(1), left.shape[-2], m, left.device)
     basis = left
     for j in range(m):
@@ -324,7 +408,7 @@ def svd_from_bidiag(
     B: torch.Tensor,
     k: int,
     key: Key,
-    axis: int | None = None,
+    axis: int | RankMesh | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Left singular vectors from the GK output: SVD of the small bidiagonal
     matrix, projected through U, completed to ``k`` orthonormal columns when

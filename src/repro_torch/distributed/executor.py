@@ -8,10 +8,12 @@ ranks are a leading dimension of every partition array on one device (the
 card, or the CPU when asked), and a ``psum`` is a sum over that dimension in
 rank order (``engine.comm``). With ``mesh=`` (``distributed.mesh``) the
 ranks are spread over G device groups: each group holds its ranks'
-elements and builds and multiplies their Z on its device, while the comm
-maps, the Lanczos state, the full COO, the core and the fit stay at the
-mesh's home (its first device) in the stacked layout; such steps run
-eagerly (a G = 1 mesh is the stacked executor, captures included). The
+elements and builds and multiplies their Z on its device, and under the
+``boundary`` backend also its ranks' rows of the Lanczos u-space (the
+groups' factor shards come home for the factor); the psum space, the
+v-space, the full COO, the core and the fit stay at the mesh's home (its
+first device); such steps run eagerly (a G = 1 mesh is the stacked
+executor, captures included). The
 executor owns no math of its own: every
 mode step is built by ``engine.steps`` (Z-build -> oracle -> comm backend)
 and the sweep loop is the shared ``engine.sweep.run_hooi_sweeps``. What it
@@ -32,7 +34,8 @@ owns:
 * an **upload cache**: each plan's device arrays, keyed weakly on the
   plan's identity and deduplicated on its parts (an ``auto`` plan shares
   its winner's arrays); over a mesh, one set of element arrays per group
-  on its device and the rest at home. On the card they go up through
+  and one of its boundary maps (``comm.group_maps``, packed in one array)
+  on its device, the rest at home. On the card they go up through
   pinned memory on a stream of their own (one per group), so
   ``stage_upload`` can run in a producer thread while another thread
   sweeps.
@@ -72,8 +75,11 @@ from repro_torch.core.stochastic import (blend_factor, next_pow2,
 from repro_torch.core.ttm import core_from_factors
 from repro_torch.device import (full_precision_matmul, on_own_device,
                                 resolve_device)
-from repro_torch.distributed.mesh import RankMesh, make_ranks_mesh
+from repro_torch.distributed.mesh import (MOVE_KINDS, GroupTensor,
+                                          RankMesh, make_ranks_mesh,
+                                          u_space_bytes)
 from repro_torch.engine.comm import (backend_comm_bytes, comm_maps,
+                                     crossing_slots, group_maps,
                                      resolve_backend)
 from repro_torch.engine.objective import resolve_objective
 from repro_torch.engine.oracle import (choose_warm_start, count_z_passes,
@@ -133,7 +139,10 @@ class DistHooiStats:
       (10) per mode and the tensor's coordinates and values for a plan
       (``10 N + 2``; on the CPU the same arrays, wrapped in place), 4 for a
       stochastic refine (the minibatch's and the snapshot's coordinates and
-      values); the reference moves ``9 N + 2`` for a plan;
+      values); the reference moves ``9 N + 2`` for a plan; over a mesh
+      of G groups ``N (4 G + 7) + 2`` (per mode each group's three
+      element arrays and its packed boundary maps, the six maps and the
+      row perm at home);
       ``upload_cache_hit`` — they were resident already;
     * ``executor`` — the executor's cumulative ``stats()`` after the call;
     * ``z_kernel`` — per mode, True when the CUDA kernel built Z (the card);
@@ -155,8 +164,11 @@ class DistHooiStats:
       estimates;
     * ``groups`` — the device groups the ranks ran on (1: stacked on one
       device); ``group_bytes`` — bytes this call moved between groups
-      (``RankMesh.moved_bytes``: the Z products' operands and answers and
-      the factors and first panel each group reads; 0 for one group);
+      (``RankMesh.moved_bytes``; 0 for one group), and by kind
+      ``group_bytes_u`` (the comm space and the Lanczos body: products'
+      operands, boundary rows, partials, home scalars) and
+      ``group_bytes_factors`` (the factors each group's Z-build reads and
+      the factor shards coming home; ``RankMesh.moved_by_kind``);
     * ``sample_fraction``/``sample_nnz``/``replay_nnz``/``step_size`` — the
       stochastic rung only: the fraction sampled, the sampled new elements,
       the replayed prefix elements and the blend step ``eta`` applied.
@@ -210,6 +222,8 @@ class DistHooiStats:
     mode_spectra: dict | None = None
     groups: int = 1
     group_bytes: int = 0
+    group_bytes_u: int = 0
+    group_bytes_factors: int = 0
     sample_fraction: float | None = None
     sample_nnz: int | None = None
     replay_nnz: int | None = None
@@ -243,20 +257,37 @@ class _ModeSpec:
 
 
 def _flat(arrs: dict):
-    """A step's arrays, a mesh's per-group element arrays included."""
+    """A step's arrays, a mesh's per-group arrays included."""
     for name, a in arrs.items():
-        if name == "groups":
+        if name in _PER_GROUP:
             for ga in a:
                 yield from ga.values()
         else:
             yield a
 
 
+_PER_GROUP = ("groups", "space")  # a mesh's per-group arrays, by mode
+
+
+def _put_packed(maps: dict, put: Callable) -> dict:
+    """Host index arrays moved as one int64 array (one upload), returned
+    as views of it by name."""
+    dev = put(np.concatenate([np.asarray(a, np.int64).reshape(-1)
+                              for a in maps.values()]))
+    out, lo = {}, 0
+    for name, a in maps.items():
+        n = int(np.prod(a.shape))
+        out[name] = dev[lo:lo + n].view(a.shape)
+        lo += n
+    return out
+
+
 @dataclasses.dataclass(eq=False)
 class _PlanUpload:
     """One plan's device arrays (the upload cache's payload) and the steps
     captured over them. Over a mesh of several groups, each mode's arrays
-    hold ``groups``: per group its ranks' elements on its device."""
+    hold ``groups`` and ``space``: per group its ranks' elements and its
+    boundary maps on its device."""
 
     arrs: tuple  # per mode: the step's arrays (``upload_mode``)
     zarrs: tuple  # per mode: coords, values, rows (the Z-build-only step)
@@ -269,11 +300,12 @@ class _PlanUpload:
     def tensors(self) -> list:
         """The arrays at home (every array, without a mesh)."""
         return [*(a for m in self.arrs for k, a in m.items()
-                  if k != "groups"),
+                  if k not in _PER_GROUP),
                 *self.row_perms, self.coords, self.values]
 
     def group_tensors(self, g: int) -> list:
-        return [a for m in self.arrs for a in m["groups"][g].values()]
+        return [a for m in self.arrs for k in _PER_GROUP
+                for a in m[k][g].values()]
 
 
 @dataclasses.dataclass(eq=False)
@@ -699,9 +731,12 @@ class HooiExecutor:
                 upload_mode(mp, mesh.devices[g], movers[g].put,
                             ranks=mesh.ranks_of(g))
                 for g in range(mesh.G))
-            maps = {name: home.put(idx)
-                    for name, idx in comm_maps(mp).items()}
-            arrs.append({"groups": groups, **maps})
+            host_maps = comm_maps(mp)
+            space = tuple(
+                _put_packed(gm, movers[g].put) for g, gm in enumerate(
+                    group_maps(host_maps, mp.P, mp.R_pad, mp.Lp, mesh.G)))
+            maps = {name: home.put(idx) for name, idx in host_maps.items()}
+            arrs.append({"groups": groups, "space": space, **maps})
             zarrs.append({"groups": groups})
         return tuple(arrs), tuple(zarrs), movers
 
@@ -756,16 +791,47 @@ class HooiExecutor:
         with self._lock:
             return dict(self._stats, cached_steps=len(self._steps),
                         cached_plans=len(self._uploads), groups=self.groups,
-                        group_bytes=self._moved())
+                        group_bytes=sum(self._moved_by_kind().values()))
 
-    def _moved(self) -> int:
-        return 0 if self._spread is None else self._spread.moved_bytes
+    def _moved_by_kind(self) -> dict:
+        return dict.fromkeys(MOVE_KINDS, 0) if self._spread is None \
+            else self._spread.moved_by_kind
 
     def _labels(self) -> dict:
         """What every calibration sample of this executor carries besides
         its numbers: a mesh of several groups is told apart from stacked
         ranks, so ``fit_cost_model`` never mixes their rates."""
         return {} if self._spread is None else {"groups": self.groups}
+
+    def modeled_u_bytes(self, pl: PartitionPlan, core_dims: Sequence[int],
+                        *, path: str = "liteopt",
+                        lanczos_block: int | None = None,
+                        fused_zbuild: bool | None = None,
+                        warm_start: str | None = None) -> dict:
+        """Per mode, the ``"u"`` bytes one sweep of ``run`` moves between
+        the mesh's groups by ``distributed.mesh.u_space_bytes``, for the
+        modes that run the boundary backend (the knobs as ``run`` resolves
+        them). Over one group: nothing."""
+        specs = self._mode_specs(
+            pl, core_dims, path, block_size=resolve_block_size(lanczos_block),
+            fused_zbuild=resolve_fused_zbuild(fused_zbuild),
+            warm_start=resolve_warm_start(warm_start))
+        eff = [min(int(k), int(mp.L)) for k, mp in zip(core_dims, pl.parts)]
+        out = {}
+        for n, (mp, sp) in enumerate(zip(pl.parts, specs)):
+            if self._spread is None or sp.backend != "boundary":
+                continue
+            G = self._spread.G
+            khat = int(np.prod([e for j, e in enumerate(eff) if j != n]))
+            sketch = sp.warm_start == "sketch"
+            S_x = crossing_slots(group_maps(comm_maps(mp), mp.P, mp.R_pad,
+                                            mp.Lp, G))
+            out[n] = u_space_bytes(
+                self.P, G, S_x, khat, sp.K_n, sp.niter, sp.block_size,
+                blockish=sketch or sp.fused_zbuild or sp.block_size > 1,
+                seed_cols=min(sp.block_size, eff[n]) if sketch else 0,
+                power_iters=DEFAULT_POWER_ITERS if sketch else 0)
+        return out
 
     def calibration_samples(self) -> list[dict]:
         """Measured sweeps (flops, bytes, seconds) for ``fit_cost_model``."""
@@ -982,6 +1048,8 @@ class HooiExecutor:
             skey, step = steps[n]
             F, sv = self._call_step(skey, step, up, up.arrs[n], facs, kk,
                                     tally)
+            if isinstance(F, GroupTensor):  # the groups' shards come home
+                F = F.home("factors")
             spectra[n] = sv
             # the stacked (P, Lp, k) rows are in relabelled order: flatten
             # over the ranks, restore the original row order, then let the
@@ -1017,12 +1085,12 @@ class HooiExecutor:
 
         objective_metrics: dict = {}
         setup_s = time.perf_counter() - t_start
-        moved = self._moved()
+        moved = self._moved_by_kind()
         dec, fits = run_hooi_sweeps(up.coords, up.values, t, factors, key,
                                     n_invocations, mode_step,
                                     on_sweep=report, objective=obj,
                                     metrics_out=objective_metrics)
-        moved = self._moved() - moved
+        moved = {k: v - moved[k] for k, v in self._moved_by_kind().items()}
         with self._lock:
             self._stats["runs"] += 1
         stats = DistHooiStats(
@@ -1061,7 +1129,9 @@ class HooiExecutor:
             mode_spectra={n: v.cpu().numpy() for n, v in spectra.items()}
             or None,
             groups=self.groups,
-            group_bytes=moved,
+            group_bytes=sum(moved.values()),
+            group_bytes_u=moved["u"],
+            group_bytes_factors=moved["factors"],
         )
         return dec, stats
 

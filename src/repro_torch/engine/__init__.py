@@ -11,9 +11,11 @@ stages:
 * **comm backend** (``engine.comm``): ``local`` (P=1), ``psum``
   (replicated row space, the paper's baseline) or ``boundary`` (sharded
   rows + O(P) boundary exchange), over P ranks stacked on one device or
-  gathered at the home of a mesh of device groups
-  (``repro_torch.distributed.mesh``), whose groups build and multiply
-  their Z (``build_group_z``, ``mesh_products``).
+  over a mesh of device groups (``repro_torch.distributed.mesh``), whose
+  groups build and multiply their Z (``build_group_z``,
+  ``group_products``): psum gathers their answers at the mesh's home
+  (``mesh_products``), boundary keeps its shards on the groups
+  (``make_mesh_boundary_space``).
 
 ``engine.steps`` composes the stages into mode steps; ``engine.sweep`` is
 the sweep loop both ``repro_torch.core.hooi.hooi`` and
@@ -37,6 +39,7 @@ from .comm import (
     COMM_BACKENDS,
     OracleSpace,
     make_comm_space,
+    make_mesh_boundary_space,
     resolve_backend,
 )
 from .objective import (
@@ -49,6 +52,7 @@ from .objective import (
 from .oracle import (
     choose_warm_start,
     count_z_passes,
+    group_products,
     mesh_products,
     resolve_block_size,
     resolve_warm_start,
@@ -78,6 +82,7 @@ __all__ = [
     "COMM_BACKENDS",
     "OracleSpace",
     "make_comm_space",
+    "make_mesh_boundary_space",
     "resolve_backend",
     "Objective",
     "TuckerObjective",
@@ -91,6 +96,7 @@ __all__ = [
     "resolve_warm_start",
     "choose_warm_start",
     "z_products",
+    "group_products",
     "mesh_products",
     "ExecutorPool",
     "PoolLane",

@@ -17,14 +17,23 @@ products into the global oracle the shared Lanczos body consumes:
 The reference runs each rank on its own device inside ``shard_map``. Here
 the P ranks are a stacked leading dimension on one device, so a ``psum`` is
 a sum over that dimension taken in rank order (``rank_sum``), and a sharded
-u-space vector is a ``(P, Lp[, s])`` tensor. Over a mesh of device groups
-(``repro_torch.distributed.mesh``) the maps and every space below live at
-the mesh's home, unchanged: what crosses between groups is only the Z
-products' operands and answers (``oracle.mesh_products``: ``x`` or each
-group's rows of ``y`` out, its ``(P/G*R_pad[, s])`` or ``(P/G, K_hat[,
-s])`` answer back), and the factors and first panel each group's Z-build
-reads, and the fused first panel's product back. The u-space is not
-sharded over the groups' devices.
+u-space vector is a ``(P, Lp[, s])`` tensor.
+
+Over a mesh of G > 1 device groups (``repro_torch.distributed.mesh``):
+
+* ``boundary`` keeps each group's ranks' u-space rows on that group, as the
+  reference keeps each device's shard (``make_mesh_boundary_space``, over
+  the per-group maps of ``group_maps``, split once per plan). A product
+  ``Z @ x`` sends ``x`` out and leaves each group's answer where it was
+  computed: only the boundary rows computed on one group for an owner on
+  another cross, straight between the two groups. ``Zᵀ @ y`` reads a
+  group's own rows in place, brings in only its foreign boundary rows,
+  and sends its ``(P/G, K_hat[, s])`` partials home to ``rank_sum``. The
+  shards are ``GroupTensor`` values; the Lanczos body's inner products
+  take their partials on the groups (``core.lanczos``).
+* ``psum`` keeps its replicated u-space at home, as the reference
+  replicates it: each product's operands go out and the groups' answers
+  come home (``oracle.mesh_products``), then the stacked space below.
 
 The reference's scatters with ``mode="drop"`` and gathers with
 ``mode="fill"`` become gathers through
@@ -43,8 +52,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.lanczos import rank_sum
+from repro_torch.distributed.mesh import GroupTensor
 
 __all__ = ["OracleSpace", "make_comm_space", "comm_maps", "gather_rows",
+           "group_maps", "crossing_slots", "make_mesh_boundary_space",
            "resolve_backend",
            "cheaper_backend", "backend_comm_bytes", "COMM_BACKENDS",
            "PATH_BACKENDS", "BACKEND_BYTES_KEY"]
@@ -79,19 +90,23 @@ class OracleSpace:
     """What a comm backend hands the shared Lanczos body.
 
     All closures take vectors or width-``s`` panels. ``axis`` is None for a
-    replicated u-space (``dim_u`` rows) and P for a sharded one (``(P,
-    dim_u)`` stacked rows). ``wrap_matvec_out`` is the backend's placement
-    step alone — ``matvec = wrap_matvec_out ∘ zmv`` — so a fused Z-build
-    that already holds ``Z_local @ V_1`` lifts it into the oracle space
-    without a second pass over Z.
+    replicated u-space (``dim_u`` rows), P for a sharded one (``(P,
+    dim_u)`` stacked rows) and the ``RankMesh`` for one sharded over a
+    mesh's groups (``GroupTensor`` values). ``wrap_matvec_out`` is the
+    backend's placement step alone — ``matvec = wrap_matvec_out ∘ zmv`` —
+    so a fused Z-build that already holds ``Z_local @ V_1`` lifts it into
+    the oracle space without a second pass over Z. ``seed(F)`` is the
+    sketch warm start's ``Σ_p Z_pᵀ F[orig_p]``: the factor columns ``F``
+    gathered per local row through ``f_src``, summed over the ranks.
     """
 
     matvec: Callable  # x (K_hat[, s]) -> u-space vector/panel
     rmatvec: Callable  # u-space vector/panel -> (K_hat[, s]) replicated
     dim_u: int  # per-rank u-space rows
-    axis: int | None  # ranks the u-space is sharded over (None: replicated)
+    axis: object  # None (replicated), P stacked ranks, or a RankMesh
     finalize: Callable  # left vectors -> (P, Lp, k) per-rank factor rows
     wrap_matvec_out: Callable = None  # local Z product -> u-space placement
+    seed: Callable = None  # (L, w) factor columns -> (K_hat, w) at home
 
 
 def resolve_backend(path: str, P: int, comm: dict | None = None) -> str:
@@ -168,9 +183,84 @@ def comm_maps(mp) -> dict[str, np.ndarray]:
             "bnd_dst": bnd_dst, "u_src": u_src, "f_src": f_src}
 
 
+def group_maps(maps: dict, P: int, R_pad: int, Lp: int, G: int
+               ) -> list[dict[str, np.ndarray]]:
+    """``comm_maps`` split over G device groups of P/G ranks (host work,
+    once per plan) for ``make_mesh_boundary_space``. Per group g, indices
+    into the group's own arrays (-1: nothing here):
+
+    * ``own_src`` (P/G, Lp), ``bnd_dst`` (P/G, B_pad), ``f_src`` (P/G,
+      R_pad): the stacked maps' rows of g's ranks, local rows counted from
+      the group's first rank;
+    * ``mv_send{h}``: g's local rows that computed a boundary slot owned by
+      a rank of group h, in the order of h's ``(P/G, B_pad)`` owner table
+      (``mv_send{g}`` stays on g);
+    * ``mv_idx`` (P/G, B_pad): for g's owners' slot table, the entry of the
+      concatenation over groups h of what h sent g;
+    * ``rmv_send{h}`` (h != g): offsets into g's flattened ``(P/G*Lp)``
+      shard of the owned rows that group h's ranks hold as boundary rows,
+      in h's local row order;
+    * ``u_idx`` (P/G, R_pad): the entry each local row reads of g's
+      flattened shard followed by the concatenation over h != g of what h
+      sent g.
+
+    Boundary slots cross between groups only where their computing rank
+    and their owner lie in different groups, once per product each way.
+    """
+    per = P // G
+    own_src, bnd_src, bnd_dst = maps["own_src"], maps["bnd_src"], \
+        maps["bnd_dst"]
+    u_src, f_src = maps["u_src"], maps["f_src"]
+    out = []
+    for g in range(G):
+        lo, hi = g * per, (g + 1) * per
+        own = own_src[lo:hi]
+        out.append({"own_src": np.where(own >= 0, own - lo * R_pad, -1),
+                    "bnd_dst": bnd_dst[lo:hi], "f_src": f_src[lo:hi]})
+    for g in range(G):  # Z @ x: owner group g's slot table
+        lo, hi = g * per, (g + 1) * per
+        src = bnd_src[lo:hi]
+        from_grp = np.where(src >= 0, src // (per * R_pad), -1)
+        idx = np.full(src.shape, -1, np.int64)
+        base = 0
+        for h in range(G):
+            sel = from_grp == h
+            out[h][f"mv_send{g}"] = src[sel] - h * per * R_pad
+            idx[sel] = base + np.arange(int(sel.sum()))
+            base += int(sel.sum())
+        out[g]["mv_idx"] = idx
+    for h in range(G):  # Zᵀ @ y: reader group h's local rows
+        lo, hi = h * per, (h + 1) * per
+        gid = u_src[lo:hi]
+        owner_grp = np.where(gid >= 0, gid // (per * Lp), -1)
+        idx = np.full(gid.shape, -1, np.int64)
+        mine = owner_grp == h
+        idx[mine] = gid[mine] - lo * Lp
+        base = per * Lp
+        for g in range(G):
+            if g == h:
+                continue
+            sel = owner_grp == g
+            out[g][f"rmv_send{h}"] = gid[sel] - g * per * Lp
+            idx[sel] = base + np.arange(int(sel.sum()))
+            base += int(sel.sum())
+        out[h]["u_idx"] = idx
+    return out
+
+
+def crossing_slots(gmaps: list[dict]) -> int:
+    """``S_x``: boundary slots whose computing rank and owner lie in
+    different groups (what one product moves between groups, per column)."""
+    G = len(gmaps)
+    return sum(int(gmaps[h][f"mv_send{g}"].shape[0])
+               for h in range(G) for g in range(G) if g != h)
+
+
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``src[idx]`` over dim 0 with -1 reading 0; the result has shape
     ``idx.shape + src.shape[1:]``."""
+    if src.shape[0] == 0:  # nothing to read: every index is -1
+        return src.new_zeros(tuple(idx.shape) + tuple(src.shape[1:]))
     flat = idx.reshape(-1)
     out = src.index_select(0, flat.clamp(min=0))
     mask = (flat >= 0).reshape((-1,) + (1,) * (src.dim() - 1))
@@ -193,7 +283,14 @@ def _psum_space(ms: dict, maps: dict, zmv, zrmv) -> OracleSpace:
         return left.reshape(P, Lp, *left.shape[1:])
 
     return OracleSpace(lambda x: wrap(zmv(x)), rmatvec, P * Lp, None,
-                       finalize, wrap)
+                       finalize, wrap, _stacked_seed(maps, zrmv))
+
+
+def _stacked_seed(maps: dict, zrmv) -> Callable:
+    def seed(F):  # (L, w) -> (K_hat, w): one stacked rmatvec, ranks summed
+        return rank_sum(zrmv(gather_rows(F, maps["f_src"])))
+
+    return seed
 
 
 def _boundary_space(ms: dict, maps: dict, zmv, zrmv) -> OracleSpace:
@@ -223,7 +320,74 @@ def _boundary_space(ms: dict, maps: dict, zmv, zrmv) -> OracleSpace:
         return rank_sum(zrmv(gather_rows(u_flat, u_src)))
 
     return OracleSpace(lambda x: wrap(zmv(x)), rmatvec, Lp, P,
-                       lambda left: left, wrap)
+                       lambda left: left, wrap, _stacked_seed(maps, zrmv))
+
+
+def make_mesh_boundary_space(ms: dict, gmaps: list, mesh, prods
+                             ) -> OracleSpace:
+    """The boundary space over a mesh's G device groups, its u-space
+    sharded over them (``GroupTensor`` values of ``(P/G, Lp[, s])`` parts).
+
+    ``gmaps[g]`` holds group g's ``group_maps`` on its device; ``prods[g]``
+    is ``(mv, rmv)``, group g's stacked products (``oracle.group_products``:
+    ``mv(x)`` its ``(P/G*R_pad[, s])`` rows, ``rmv(y)`` its ranks' ``Z_pᵀ
+    y_p`` from ``(P/G, R_pad[, s])``). Each group places its product as
+    ``_boundary_space`` does, the same adds in the same slot order, so the
+    shards are the stacked space's rows. ``wrap_matvec_out`` takes the
+    groups' products as a list (the fused first panel's, left on the
+    groups).
+    """
+    Lp, G, per = ms["Lp"], mesh.G, mesh.per_group
+    rank_base = mesh.each(lambda g: torch.arange(
+        per, device=mesh.devices[g]) * (Lp + 1))
+
+    def wrap(locals_):  # [(P/G*R_pad[, s]) per group] -> owned-row shards
+        sends = mesh.each(lambda h: [
+            gather_rows(locals_[h], gmaps[h][f"mv_send{g}"])
+            for g in range(G)])
+        inc = [[mesh.between(sends[h][g], h, g) for h in range(G)]
+               for g in range(G)]
+
+        def place(g):
+            local, m = locals_[g], gmaps[g]
+            tail = tuple(local.shape[1:])
+            shard = torch.zeros((per, Lp + 1) + tail, dtype=local.dtype,
+                                device=local.device)
+            shard[:, :Lp] = gather_rows(local, m["own_src"])
+            flat = shard.view((per * (Lp + 1),) + tail)
+            bnd = gather_rows(torch.cat(inc[g]), m["mv_idx"])
+            # the stacked space's slot-column loop over g's owners
+            for j in range(bnd.shape[1]):
+                dst = rank_base[g] + m["bnd_dst"][:, j]
+                flat[dst] = flat[dst] + bnd[:, j]
+            return shard[:, :Lp]
+
+        return GroupTensor.build(mesh, place)
+
+    def matvec(x):
+        xs = [mesh.to_group(x, g) for g in range(G)]
+        return wrap(mesh.each(lambda g: prods[g][0](xs[g])))
+
+    def rmatvec(u):  # GroupTensor (P/G, Lp[, s]) parts -> (K_hat[, s])
+        flat = mesh.each(lambda g: u.parts[g].reshape(
+            (per * Lp,) + tuple(u.parts[g].shape[2:])))
+        sends = mesh.each(lambda g: {
+            h: gather_rows(flat[g], gmaps[g][f"rmv_send{h}"])
+            for h in range(G) if h != g})
+        inc = [[mesh.between(sends[g][h], g, h) for g in range(G) if g != h]
+               for h in range(G)]
+        partials = GroupTensor.build(mesh, lambda h: prods[h][1](
+            gather_rows(torch.cat([flat[h], *inc[h]]), gmaps[h]["u_idx"])))
+        return rank_sum(partials.home())
+
+    def seed(F):  # (L, w) factor columns at home -> (K_hat, w)
+        Fs = [mesh.to_group(F, g, "factors") for g in range(G)]
+        partials = GroupTensor.build(mesh, lambda g: prods[g][1](
+            gather_rows(Fs[g], gmaps[g]["f_src"])))
+        return rank_sum(partials.home())
+
+    return OracleSpace(matvec, rmatvec, Lp, mesh, lambda left: left, wrap,
+                       seed)
 
 
 # on stacked ranks the local space is the psum space at P = 1: its gathers

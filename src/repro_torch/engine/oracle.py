@@ -12,10 +12,11 @@ Z through ``Z @ x`` and ``Zᵀ @ y`` (paper §3):
   results are the same, and either way it is one pass of Z per product.
 
 ``stacked_products`` gives the same two products for the distributed
-step's stacked ranks, and ``mesh_products`` for ranks spread over the
-device groups of a ``distributed.mesh.RankMesh`` (one product per group,
-on its device and stream, the answers gathered at home in the stacked
-layout); ``solve_oracle``/``solve_oracle_block`` run the
+step's stacked ranks, ``group_products`` each device group's of a
+``distributed.mesh.RankMesh`` (one product per group, on its device and
+stream: the boundary space places them on the groups), and
+``mesh_products`` those with the answers gathered at home in the stacked
+layout (the psum space); ``solve_oracle``/``solve_oracle_block`` run the
 vector and the block Lanczos drivers. ``resolve_warm_start``,
 ``choose_warm_start`` and ``count_z_passes`` settle the sketch warm start
 (``core.sketch``) per mode and count what each choice reads of Z.
@@ -35,7 +36,8 @@ from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, sketch_block_size,
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.random import Key
 
-__all__ = ["z_products", "stacked_products", "mesh_products", "solve_oracle",
+__all__ = ["z_products", "stacked_products", "group_products",
+           "mesh_products", "solve_oracle",
            "solve_oracle_block", "resolve_block_size", "resolve_warm_start",
            "choose_warm_start", "count_z_passes"]
 
@@ -146,6 +148,14 @@ def stacked_products(Z: torch.Tensor, P: int, *,
     return matvec, rmatvec
 
 
+def group_products(Zs, mesh, *, fused: bool = False
+                   ) -> list[tuple[Callable, Callable]]:
+    """``stacked_products`` of each group's ``(P/G*R_pad, K_hat)`` stack
+    ``Zs[g]``, made on its group: call each on its group."""
+    return mesh.each(lambda g: stacked_products(Zs[g], mesh.per_group,
+                                                fused=fused))
+
+
 def mesh_products(Zs, mesh, *, fused: bool = False
                   ) -> tuple[Callable, Callable]:
     """(zmv, zrmv) for ranks spread over a mesh's device groups, with
@@ -159,10 +169,7 @@ def mesh_products(Zs, mesh, *, fused: bool = False
     group's work is queued before home waits for any of it.
     """
     per = mesh.per_group
-    prods = []
-    for g, Zg in enumerate(Zs):
-        with mesh.group(g):
-            prods.append(stacked_products(Zg, per, fused=fused))
+    prods = group_products(Zs, mesh, fused=fused)
 
     def gathered(calls):
         outs = []

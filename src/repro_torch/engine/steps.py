@@ -9,7 +9,8 @@ distributed step, the **comm backend** (``engine.comm``):
   stacked along a leading dimension on one device (the reference wraps the
   same function in ``shard_map``), or with a ``mesh`` of several device
   groups, each group's ranks stacked on its device: the Z-build and the
-  Z products run per group, everything after them at the mesh's home;
+  Z products run per group, and under ``boundary`` the u-space stays on
+  the groups too;
 * ``local_mode_step`` — the same composition with the identity partition
   and no comm space: what ``repro_torch.core.hooi`` runs;
 * ``make_zbuild_step_fn`` — the Z-build alone over the stacked ranks (the
@@ -37,16 +38,15 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.lanczos import (block_start_panel, gk_block_bidiag,
-                                      lanczos_niter, rank_sum,
-                                      svd_from_bidiag)
+                                      lanczos_niter, svd_from_bidiag)
 from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, power_refine,
                                      seeded_start_panel, sketch_block_size,
                                      sketch_niter)
 from repro_torch.random import Key
 
-from .comm import gather_rows, make_comm_space
-from .oracle import (mesh_products, solve_oracle, solve_oracle_block,
-                     stacked_products, z_products)
+from .comm import make_comm_space, make_mesh_boundary_space
+from .oracle import (group_products, mesh_products, solve_oracle,
+                     solve_oracle_block, stacked_products, z_products)
 from .zbuild import build_group_z, build_local_z, build_local_z_oracle
 
 __all__ = ["make_mode_step_fn", "make_zbuild_step_fn",
@@ -146,20 +146,24 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int,
     each rank's owned rows in relabelled order.
 
     ``warm_start="sketch"`` seeds the block driver with ``Σ_p Z_pᵀ
-    F_n[orig_p][:, :w]``: the map ``f_src`` (built once per plan,
-    ``comm.comm_maps``) gives each local row's original row id, the gather
-    of those factor rows is one stacked ``rmatvec`` (one ``oracle_pair``
-    launch for all ranks when fused) and ``rank_sum`` adds the ranks in
-    order. The spec builder turns the fused build off for sketch modes.
+    F_n[orig_p][:, :w]`` (the space's ``seed``): the map ``f_src`` (built
+    once per plan, ``comm.comm_maps``) gives each local row's original row
+    id, the gather of those factor rows is one stacked ``rmatvec`` (one
+    ``oracle_pair`` launch for all ranks when fused) and ``rank_sum`` adds
+    the ranks in order. The spec builder turns the fused build off for
+    sketch modes.
 
     With a ``mesh`` of G > 1 device groups (``distributed.mesh``), ``arrs``
     holds ``groups`` instead of the elements: per group its ranks'
     ``coords``, ``values`` and ``rows`` (offset by ``p*R_pad`` within the
-    group) on its device. Each group builds its Z (and the fused first
-    panel's product, brought home) and answers its share of every product
-    (``oracle.mesh_products``); the maps, the comm space and the Lanczos
-    body stay at the mesh's home with the stacked layout, so the rest of
-    the step is the stacked one.
+    group) on its device, and ``space``, its ``comm.group_maps``. Each
+    group builds its Z and answers its share of every product. Under
+    ``boundary`` the u-space is sharded over the groups
+    (``comm.make_mesh_boundary_space``): the fused first panel's product
+    stays on them, the Lanczos body runs on ``GroupTensor`` shards, and
+    ``F`` comes back as the groups' ``(P/G, Lp, K_n)`` shards (the caller
+    brings them home). Under ``psum`` the products' answers come home
+    (``oracle.mesh_products``) to the stacked space there.
     """
     P, R_pad, mode = ms["P"], ms["R_pad"], ms["mode"]
     precision = ms.get("precision", "f32")
@@ -175,12 +179,19 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int,
         first_panel = ZV1 = None
         if fused_zbuild:
             first_panel = block_start_panel(key, Khat, block_size, dev)
+        fused = ms.get("use_fused", False)
         if _spread(mesh):
+            sharded = backend == "boundary"
             Zs, ZV1 = build_group_z(mesh, arrs["groups"], factors, mode,
                                     P // mesh.G * R_pad, first_panel,
-                                    precision=precision)
-            zmv, zrmv = mesh_products(Zs, mesh,
-                                      fused=ms.get("use_fused", False))
+                                    precision=precision, gather=not sharded)
+            if sharded:
+                space = make_mesh_boundary_space(
+                    ms, arrs["space"], mesh,
+                    group_products(Zs, mesh, fused=fused))
+            else:
+                space = make_comm_space(backend, ms, arrs,
+                                        *mesh_products(Zs, mesh, fused=fused))
         else:
             if fused_zbuild:
                 Z, ZV1 = build_local_z_oracle(
@@ -190,14 +201,12 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int,
                 Z = build_local_z(arrs["coords"], arrs["values"],
                                   arrs["rows"], factors, mode, P * R_pad,
                                   precision=precision)
-            zmv, zrmv = stacked_products(Z, P,
-                                         fused=ms.get("use_fused", False))
-        space = make_comm_space(backend, ms, arrs, zmv, zrmv)
+            space = make_comm_space(backend, ms, arrs,
+                                    *stacked_products(Z, P, fused=fused))
         if warm_start == "sketch":
             F_n = factors[mode]
             w = min(block_size, int(F_n.shape[1]))
-            seed = rank_sum(zrmv(gather_rows(F_n[:, :w].contiguous(),
-                                             arrs["f_src"])))
+            seed = space.seed(F_n[:, :w].contiguous())
             first_panel = seeded_start_panel(seed, key, Khat, block_size)
             first_panel = power_refine(space.matvec, space.rmatvec,
                                        first_panel, DEFAULT_POWER_ITERS)

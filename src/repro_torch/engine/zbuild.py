@@ -121,21 +121,23 @@ def build_group_z(
     X: torch.Tensor | None = None,
     *,
     precision: str = "f32",
-) -> tuple[list[torch.Tensor], torch.Tensor | None]:
+    gather: bool = True,
+) -> tuple[list[torch.Tensor], torch.Tensor | list | None]:
     """Each device group's Z over its ranks' elements, and with a first
-    panel X the panel product at home.
+    panel X the panel product.
 
     ``groups[g]`` holds group g's sorted ``coords``, ``values`` and
     ``rows`` (local rows offset by ``p*R_pad`` within the group);
     ``num_rows`` is a group's ``P/G*R_pad``. ``factors`` and X lie at home:
     each group gets the factors its build reads (every one but the mode's,
     which the build does not read and stays None) and X. Returns the
-    groups' Z, each on its device, and ``Z @ X`` concatenated at home in
-    the stacked layout (None without X).
+    groups' Z, each on its device, and ``Z @ X`` (None without X):
+    concatenated at home in the stacked layout, or with ``gather=False``
+    left on the groups as a list (the boundary space places it there).
     """
     Zs, ZXs = [], []
     for g, arrs in enumerate(groups):
-        facs = [None if j == mode else mesh.to_group(f, g)
+        facs = [None if j == mode else mesh.to_group(f, g, "factors")
                 for j, f in enumerate(factors)]
         Xg = None if X is None else mesh.to_group(X, g)
         with mesh.group(g):
@@ -151,4 +153,6 @@ def build_group_z(
                 ZXs.append(ZX)
     if X is None:
         return Zs, None
+    if not gather:
+        return Zs, ZXs
     return Zs, torch.cat([mesh.to_home(zx, g) for g, zx in enumerate(ZXs)])

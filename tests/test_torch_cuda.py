@@ -1014,6 +1014,38 @@ def test_mesh_on_one_card_bitwise_stacked(cuda, path, knob):
         assert st.group_bytes > 0
 
 
+@pytest.mark.parametrize("G", [2, 4])
+def test_mesh_boundary_u_space_on_group_streams(cuda, G):
+    """Over ``[cuda:0] * G`` a boundary run keeps its u-space on the
+    groups: every ``GroupTensor`` part on its group's device and made on
+    its group's stream, and the ``"u"`` bytes the formula's."""
+    from repro_torch.distributed.mesh import GroupTensor
+
+    t, pl = _geometric_case()
+    core = (5, 5, 5)
+    knobs = dict(lanczos_block=8, fused_zbuild=True)
+    mesh = make_ranks_mesh(4, devices=[cuda] * G)
+    ex = HooiExecutor(4, mesh=mesh)
+    seen = []
+    real = GroupTensor.__init__
+
+    def init(self, *a, **k):
+        real(self, *a, **k)
+        seen.append((tuple(p.device for p in self.parts), self.made_on))
+
+    kw = dict(n_invocations=2, seed=4, use_fused_oracle=True, **knobs)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(GroupTensor, "__init__", init)
+        _, st = ex.run(t, core, pl, path="liteopt", **kw)
+    torch.cuda.synchronize()
+    streams = tuple(s.cuda_stream for s in mesh.streams)
+    assert seen and all(devs == mesh.devices and made == streams
+                        for devs, made in seen)
+    modeled = ex.modeled_u_bytes(pl, core, path="liteopt", **knobs)
+    assert st.group_bytes_u == len(st.fits) * sum(modeled.values())
+    assert st.group_bytes == st.group_bytes_u + st.group_bytes_factors
+
+
 def _load_mesh_kernels(dev, n: int) -> None:
     """The kernels the mesh-ordering tests queue, launched once first (a
     first launch may wait for the device)."""

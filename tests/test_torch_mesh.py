@@ -155,15 +155,16 @@ def test_mesh_matches_stacked_and_reference(request, G, path, knob):
 
 # ----------------------------------------------------------- the executor
 def test_mesh_executor_caches_uploads_and_steps(small_tensor):
-    """``stage_upload`` puts each group's share up once (3 arrays a mode a
-    group, the maps, row perms and COO at home); the run then uploads
-    nothing, and a rerun compiles nothing; reruns are bitwise."""
+    """``stage_upload`` puts each group's share up once (3 element arrays
+    and one packed array of its boundary maps a mode a group, the maps,
+    row perms and COO at home); the run then uploads nothing, and a rerun
+    compiles nothing; reruns are bitwise."""
     t, core, G = _port(small_tensor), (3, 3, 3), 2
     ex = HooiExecutor(P, mesh=_cpu_mesh(G))
     assert ex.device == CPU and ex.groups == G and ex.mesh.G == G
     pl = build_plan(t, "lite", P, core_dims=core)
     staged = ex.stage_upload(pl, t)
-    assert staged == {"uploads": t.ndim * (3 * G + 7) + 2,
+    assert staged == {"uploads": t.ndim * (4 * G + 7) + 2,
                       "already_resident": False}
     assert ex.stage_upload(pl, t) == {"uploads": 0,
                                       "already_resident": True}
@@ -375,7 +376,7 @@ def test_reroute_carries_plan_bytes_between_mesh_lanes(small_tensor):
     buf = io.BytesIO()
     pl.save(buf)
     loaded = PartitionPlan.load(io.BytesIO(buf.getvalue()), t)
-    assert b.stage_upload(loaded, t)["uploads"] == t.ndim * (3 * 2 + 7) + 2
+    assert b.stage_upload(loaded, t)["uploads"] == t.ndim * (4 * 2 + 7) + 2
     _, sb = b.run(t, core, loaded, n_invocations=2, seed=3)
     assert sb.uploads == 0 and sb.fits == sa.fits
 
