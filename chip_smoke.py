@@ -143,10 +143,24 @@ Phases, each fatal on failure (nothing is caught):
     shard (``GroupTensor`` part) on its group's device and made on its
     group's stream; the device ops one boundary invocation dispatches
     (``mesh_census``), stacked eager and per mesh; with two or more cards
-    a mesh over distinct cards too (else the skip is logged);
+    a mesh over distinct cards too (else the skip is logged). Those mesh
+    runs are eager (their executor's captures off); then each mesh on one
+    card runs every row again on the same executor, its steps captured as
+    CUDA graphs: captures on the first run, held to the stacked captured
+    run (bitwise, or within the f32 bars) and to the same mesh run eagerly
+    (bitwise, or the verdict logged within the f32 bars), bytes between
+    groups by kind equal to the eager run's, every launch recorded on its
+    group's stream; a rerun with 0 captures, compilations and uploads,
+    replays, bitwise; per row the segments per step, steady seconds per
+    sweep captured beside eager, graph launches and their host seconds
+    (``cudaGraphLaunch``) per sweep, kernel executions per replayed sweep
+    (the launches the captures recorded, and the core's), and peak memory
+    captured beside eager;
 19. the same on phase 17's geometric-pad reselect plan (E_pad 2^25, every
     group's first element at a multiple of CHUNK), after the pool, against
-    a fresh stacked executor: every run bitwise.
+    a fresh stacked executor: every run bitwise against the stacked run
+    (eager rows against the stacked eager run, captured rows against the
+    stacked captured run).
 
 The distributed phases (7, 8, 9, 13, 14, 15, 18, 16, 17, 19) run right
 after the kernel checks (3); when the run is late, the single-process
@@ -1899,20 +1913,41 @@ MESH_RUNS = (  # (label, path, knobs) beside dist_kwargs()
 
 def kernel_spies(seen: list):
     """Patches for ``kernels.ops``' two launch sites: each call records
-    (current device, the operand's device, the current stream) and goes on
-    to the wrapper (which counts its launch)."""
+    (current device, the operand's device, the current stream, whether it
+    is capturing, the kernel) and goes on to the wrapper (which counts its
+    launch unless it is recorded into a graph)."""
     import torch
     from repro_torch.kernels import ops
 
-    def spy(real):
+    def spy(real, kind):
         def call(*a, **k):
+            name = kind if kind != "kron_segsum" or k.get("X") is None \
+                else "kron_segsum_oracle"
             seen.append((torch.cuda.current_device(), a[0].device.index,
-                         torch.cuda.current_stream().cuda_stream))
+                         torch.cuda.current_stream().cuda_stream,
+                         torch.cuda.is_current_stream_capturing(), name))
             return real(*a, **k)
         return call
 
-    return [(ops, "kron_segsum_gather", spy(ops.kron_segsum_gather)),
-            (ops, "_oracle_pair_kernel", spy(ops._oracle_pair_kernel))]
+    return [(ops, "kron_segsum_gather",
+             spy(ops.kron_segsum_gather, "kron_segsum")),
+            (ops, "_oracle_pair_kernel",
+             spy(ops._oracle_pair_kernel, "oracle_pair"))]
+
+
+def replay_timer(spent: list):
+    """A patch for ``torch.cuda.CUDAGraph.replay``: each replay's host
+    seconds (the ``cudaGraphLaunch`` call) appended to ``spent``."""
+    import torch
+
+    real = torch.cuda.CUDAGraph.replay
+
+    def replay(self):
+        t0 = time.perf_counter()
+        real(self)
+        spent.append(time.perf_counter() - t0)
+
+    return torch.cuda.CUDAGraph, "replay", replay
 
 
 def shard_spy(seen: list):
@@ -1999,15 +2034,20 @@ def held_to_stacked(t, got, want, what: str, bitwise: bool) -> str:
 
 def mesh_run(ex, t, pl, label: str, path: str, kw: dict, mesh=None):
     """One run on ``ex`` with launch counts, spies and peak memory read
-    around it; returns ((dec, stats), record)."""
+    around it: each launch's device, stream and whether it was recorded
+    into a graph (``recorded``: per kernel, the launches the run's
+    captures recorded), and the host seconds of every graph replay.
+    Returns ((dec, stats), record)."""
     import torch
 
     seen: list = []
     shards: list = []
+    spent: list = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    patches = kernel_spies(seen) + [shard_spy(shards)] \
+    patches = kernel_spies(seen) + [shard_spy(shards),
+                                    replay_timer(spent)] \
         if mesh is not None else []
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:
@@ -2027,21 +2067,30 @@ def mesh_run(ex, t, pl, label: str, path: str, kw: dict, mesh=None):
            "steady_s": float(np.mean(st.sweep_s[1:] or st.sweep_s)),
            "group_bytes_per_sweep": st.group_bytes / sweeps,
            "u_bytes_per_sweep": st.group_bytes_u / sweeps,
-           "factor_bytes_per_sweep": st.group_bytes_factors / sweeps}
+           "factor_bytes_per_sweep": st.group_bytes_factors / sweeps,
+           "recorded": {k: sum(1 for x in seen if x[3] and x[4] == k)
+                        for k in launches},
+           "replay_host_s_per_sweep": sum(spent) / sweeps,
+           "graph_launches_per_sweep": len(spent) / sweeps}
     check_fits(st.fits, label)
     if mesh is not None:
         streams = {s.cuda_stream for s in mesh.streams}
         home = torch.cuda.current_stream().cuda_stream
-        wrong = [s for s in seen if s[0] != s[1]]
-        used = {s for _, _, s in seen}
-        if wrong or not streams <= used or used - streams - {home}:
+        wrong = [x for x in seen if x[0] != x[1]]
+        used = {x[2] for x in seen}
+        recorded_on = {x[2] for x in seen if x[3]}
+        replayed_only = st.graph_replays and not st.step_captures
+        if wrong or not (replayed_only or streams <= used) or \
+                used - streams - {home} or not recorded_on <= streams:
             raise AssertionError(
                 f"{label}: launches with another current device {wrong[:4]}"
                 f" or off the groups' streams ({len(used)} streams used, "
                 f"groups {len(streams)})")
         rec["launch_sites"] = len(seen)
+        # a run that only replays launches none of the steps' kernels from
+        # the wrappers (its captures recorded them)
         for name in ("kron_segsum", "oracle_pair"):
-            if launches[name] <= 0:
+            if launches[name] <= 0 and not replayed_only:
                 raise AssertionError(f"{name} not launched on the mesh "
                                      f"path ({label})")
         knobs = dict(args, **kw)
@@ -2132,7 +2181,17 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
     stacked runs are also timed captured, and held to the eager ones
     (bitwise or the f32 bars: a captured step may round apart from the
     same step run eagerly). With two or more cards, a mesh over distinct
-    cards too. Ends with one ``mesh bytes`` JSON line of every run."""
+    cards too (eager only). Then each mesh on one card again with its
+    steps captured (the same executor, its captures on): each
+    row captures on its first run, with every check above, bitwise the
+    stacked captured run where ``bitwise`` (else within the f32 bars), held
+    to the mesh's eager run (bitwise, or the verdict logged within the f32
+    bars), its bytes between groups by kind the eager run's; then a
+    rerun captures, compiles and uploads nothing, replays and gives the
+    first run's bits, with the host seconds of its graph launches per
+    sweep; the kernels' executions per replayed sweep, segments per step
+    and peak memory beside the eager run's. Ends with one ``mesh bytes`` JSON line of
+    every run."""
     import torch
     from repro_torch.distributed.dist_hooi import (HooiExecutor,
                                                    make_ranks_mesh)
@@ -2175,9 +2234,12 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
                                      for i in range(2)]))
     else:
         log("mesh over distinct cards skipped: one card")
+    out["captured_runs"] = {}
     for mlabel, devices in meshes:
         mesh = make_ranks_mesh(DIST_P, devices=devices)
         ex = HooiExecutor(DIST_P, mesh=mesh)
+        # its captures off for the eager rows (None over distinct cards)
+        capture_home, ex._home = ex._home, None
         t0 = time.perf_counter()
         staged = ex.stage_upload(pl, t)
         stage_s = time.perf_counter() - t0
@@ -2230,6 +2292,10 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
                                  f"{st.step_compilations} compilations")
         log(f"mesh {mlabel} rerun ({name}): 0 uploads, 0 compilations, "
             f"bitwise the first run; stats() {ex.stats()}")
+        if capture_home is not None:  # the same plan's arrays, captured
+            ex._home = capture_home
+            out["captured_runs"].update(mesh_captured(
+                ex, t, pl, name, bitwise, mlabel, mesh, results, out))
         del ex, up, results, first, again
         gc.collect()
         torch.cuda.empty_cache()
@@ -2241,10 +2307,106 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
             "u_space_at_home": r["unsharded_bytes_per_sweep"],
             "steady_s": r["steady_s"], "verdict": r["verdict"]}
         for k, r in out["runs"].items()},
+        "captured": {
+            k: {"bytes": r["group_bytes_per_sweep"],
+                "u": r["u_bytes_per_sweep"],
+                "factors": r["factor_bytes_per_sweep"],
+                "steady_s": r["steady_s"], "eager_steady_s": r["eager_s"],
+                "graph_launch_s_per_sweep": r["graph_launch_s_per_sweep"],
+                "graph_launches_per_sweep": r["graph_launches_per_sweep"],
+                "executions_per_sweep": r["executions_per_sweep"],
+                "segments": r["segments"],
+                "peak_gib": r["peak_bytes"] / 2**30,
+                "eager_peak_gib": r["eager_peak_bytes"] / 2**30,
+                "verdict_stacked_captured": r["verdict"],
+                "verdict_mesh_eager": r["verdict_eager"]}
+            for k, r in out["captured_runs"].items()},
         "census": out["census"],
         "liteopt_bytes": comm["liteopt_bytes"],
         "baseline_bytes": comm["baseline_bytes"]}), flush=True)
     return out
+
+
+def mesh_captured(ex, t, pl, name: str, bitwise: bool, mlabel: str, mesh,
+                  eager: dict, out: dict) -> dict:
+    """Each of ``MESH_RUNS`` on ``ex`` over ``mesh`` (one card; the
+    executor of the eager rows, its plan resident), its steps now
+    captured: the first run captures; held bitwise (``bitwise``)
+    or within the f32 bars to the stacked captured run, and to the mesh's
+    eager run (``eager``: bitwise, or the verdict logged within the f32
+    bars); its bytes between groups by kind the eager run's; then a
+    rerun with 0 captures, compilations and uploads, replays, the first
+    run's bits. Returns the rows' records."""
+    rows = {}
+    for label, path, kw in MESH_RUNS:
+        if label not in eager:
+            continue
+        what = f"{mlabel} captured {label} ({name})"
+        got, rec = mesh_run(ex, t, pl, what, path, kw, mesh=mesh)
+        st, (_, est) = got[1], eager[label][0]
+        erec = eager[label][1]
+        if not st.step_captures:
+            raise AssertionError(f"{what}: no step captured")
+        if (st.group_bytes_u, st.group_bytes_factors) != \
+                (est.group_bytes_u, est.group_bytes_factors):
+            raise AssertionError(
+                f"{what}: bytes between groups u {st.group_bytes_u}, "
+                f"factors {st.group_bytes_factors} against the eager run's "
+                f"{est.group_bytes_u}, {est.group_bytes_factors}")
+        rec["verdict"] = held_to_stacked(
+            t, got, out["captured"][label][0], f"{what} against the stacked "
+            "captured run", bitwise)
+        rec["verdict_eager"] = held_to_stacked(
+            t, got, eager[label][0], f"{what} against the mesh eager run",
+            False)
+        rec["segments"] = sorted({len(g.segments)
+                                  for g in ex._uploads[pl].graphs.values()})
+        again, arec = mesh_run(ex, t, pl, f"{what} rerun", path, kw,
+                               mesh=mesh)
+        ast = again[1]
+        if (ast.step_captures, ast.step_compilations, ast.uploads) != \
+                (0, 0, 0) or not ast.graph_replays or held_to_stacked(
+                    t, again, got, f"{what} rerun", True) != "bitwise":
+            raise AssertionError(
+                f"{what} rerun: {ast.step_captures} captures, "
+                f"{ast.step_compilations} compilations, {ast.uploads} "
+                f"uploads, {ast.graph_replays} replays")
+        sweeps = len(ast.fits)
+        zbuild = "kron_segsum_oracle" if kw.get("fused_zbuild", True) \
+            else "kron_segsum"
+        if rec["recorded"][zbuild] <= 0 or rec["recorded"]["oracle_pair"] \
+                <= 0:
+            raise AssertionError(f"{what}: the captures recorded "
+                                 f"{rec['recorded']}")
+        # a replayed sweep runs every step's recorded launches once (the
+        # first run captured each step once) and the core's Z-build eagerly
+        rec.update(
+            eager_s=erec["steady_s"], eager_peak_bytes=erec["peak_bytes"],
+            graph_launch_s_per_sweep=arec["replay_host_s_per_sweep"],
+            graph_launches_per_sweep=arec["graph_launches_per_sweep"],
+            executions_per_sweep={
+                k: rec["recorded"][k] + arec["launches"][k] / sweeps
+                for k in rec["recorded"]},
+            replays=ast.graph_replays)
+        log(f"mesh {what}: captures {st.step_captures}, segments per step "
+            f"{rec['segments']}; against the stacked captured run: "
+            f"{rec['verdict']}; against the mesh eager run: "
+            f"{rec['verdict_eager']}; steady sweep {rec['steady_s']:.4f} s "
+            f"captured against {erec['steady_s']:.4f} s eager (stacked "
+            f"captured {out['captured'][label][1]['steady_s']:.4f} s); "
+            f"bytes between groups per sweep "
+            f"{rec['group_bytes_per_sweep']:.0f} (u "
+            f"{rec['u_bytes_per_sweep']:.0f}, factors "
+            f"{rec['factor_bytes_per_sweep']:.0f}) = the eager run's; peak "
+            f"{rec['peak_bytes'] / 2**30:.3f} GiB captured against "
+            f"{erec['peak_bytes'] / 2**30:.3f} GiB eager; rerun: 0 "
+            f"captures, 0 compilations, 0 uploads, {ast.graph_replays} "
+            f"replays, bitwise; per sweep {rec['graph_launches_per_sweep']:g}"
+            f" graph launches taking {rec['graph_launch_s_per_sweep']:.4f} s "
+            f"of host time (cudaGraphLaunch), kernel executions "
+            f"{rec['executions_per_sweep']}")
+        rows[f"{mlabel} {label}"] = rec
+    return rows
 
 
 def phase_dist_sketch(t) -> dict:
@@ -2770,6 +2932,13 @@ def main() -> int:
                 "dist_replayed_profiled": dist_replayed["executions"][name],
                 "stochastic_refine_cached":
                     stoch["replayed"]["executions"][name]},
+            # per replayed sweep of a captured mesh's rows: the launches
+            # its captures recorded, and the core's
+            "mesh_replayed_per_sweep": {
+                f"{plan} {label}": rec["executions_per_sweep"][name]
+                for plan, mesh in (("default-pad", mesh_default),
+                                   ("geometric-pad", mesh_geo))
+                for label, rec in mesh["captured_runs"].items()},
             "max_abs_err": errs[name], "ms": mean(name, "ms"),
             "plain_ms": mean(name, "plain"), "bound_ms": mean(name, "bound"),
             "bound_by": bound_by(name),

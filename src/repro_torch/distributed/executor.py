@@ -12,8 +12,11 @@ elements and builds and multiplies their Z on its device, and under the
 ``boundary`` backend also its ranks' rows of the Lanczos u-space (the
 groups' factor shards come home for the factor); the psum space, the
 v-space, the full COO, the core and the fit stay at the mesh's home (its
-first device); such steps run eagerly (a G = 1 mesh is the stacked
-executor, captures included). The
+first device). A mesh whose groups all lie on one card has its steps
+captured as the stacked executor's are, each group's launches a branch of
+the graph on its own stream (``repro_torch.graphs``); over distinct cards
+they run eagerly, since a graph that spans cards cannot be checked on one
+card. A G = 1 mesh is the stacked executor. The
 executor owns no math of its own: every
 mode step is built by ``engine.steps`` (Z-build -> oracle -> comm backend)
 and the sweep loop is the shared ``engine.sweep.run_hooi_sweeps``. What it
@@ -24,8 +27,9 @@ owns:
   niter, precision, panel width, fused build, objective, warm start), LRU
   bounded at ``MAX_COMPILED_STEPS``. A *compilation* is counted exactly as
   the reference counts it: the first call of a (step, shapes) signature.
-  On the CPU, and over a mesh of several groups, the step then runs
-  eagerly. Otherwise on the card a call runs the step
+  On the CPU, and over a mesh whose groups lie on distinct cards, the step
+  then runs eagerly. Otherwise on the card (a mesh on one card included) a
+  call runs the step
   as CUDA graphs (``repro_torch.graphs``): the first call over a plan's
   arrays is a **capture** (an eager warm-up, then the step captured segment
   by segment), later calls replay. A graph is bound to the arrays it was
@@ -324,10 +328,11 @@ class _StochUpload:
 
 def _read_here(up, mesh: RankMesh | None = None):
     """Mark an upload's arrays as read on the current stream (a mesh
-    group's on the group's stream), and return it. They are blocks of their
-    uploader's stream, whose cache may hand a block out again as soon as it
-    is freed; ``record_stream`` makes that wait for the work queued on the
-    reader. Off CUDA: nothing."""
+    group's also on the group's stream, where an eager step reads them; a
+    captured one reads them on the current stream), and return it. They are
+    blocks of their uploader's stream, whose cache may hand a block out
+    again as soon as it is freed; ``record_stream`` makes that wait for the
+    work queued on the reader. Off CUDA: nothing."""
     if up.coords.is_cuda:
         stream = torch.cuda.current_stream(up.coords.device)
         for a in up.tensors():
@@ -335,6 +340,8 @@ def _read_here(up, mesh: RankMesh | None = None):
         for g in range(mesh.G if mesh is not None else 0):
             for a in up.group_tensors(g):
                 a.record_stream(mesh.streams[g])
+                if a.device == stream.device:
+                    a.record_stream(stream)
     return up
 
 
@@ -478,9 +485,12 @@ class HooiExecutor:
                        "step_cache_hits": 0, "step_captures": 0,
                        "graph_replays": 0, "uploads": 0,
                        "upload_cache_hits": 0}
-        # a mesh of several groups runs its steps eagerly (``_invoke``)
+        # steps are captured on one card only: a mesh over distinct cards
+        # runs them eagerly (``_invoke``)
+        one_card = self._spread is None or all(
+            d == self.device for d in self._spread.devices)
         self._home = CaptureHome(self.device) \
-            if self.device.type == "cuda" and self._spread is None else None
+            if self.device.type == "cuda" and one_card else None
 
     # ------------------------------------------------------------ planning
     def _check_plan(self, pl: PartitionPlan, t: SparseTensor,
@@ -654,9 +664,11 @@ class HooiExecutor:
 
     def _invoke(self, skey, step, home, arrs: dict, factors, key,
                 tally: dict):
-        """Run a cached step: eagerly on the CPU and over a mesh of several
-        groups; otherwise on the card its graphs, captured over ``arrs`` on
-        the first call (kept in ``home.graphs``, beside the arrays)."""
+        """Run a cached step: eagerly on the CPU and over a mesh whose
+        groups lie on distinct cards (a graph that spans cards cannot be
+        checked on one card); otherwise on the card its graphs, captured
+        over ``arrs`` on the first call (kept in ``home.graphs``, beside the
+        arrays), a mesh's groups as branches on their streams."""
         if self._home is None:
             return step(arrs, factors, key)
         gkey = (skey, self._shapes(arrs, factors))
@@ -664,7 +676,8 @@ class HooiExecutor:
             graph = home.graphs.get(gkey)
             if graph is None:
                 graph, out = StepGraph.capture(self._home, step, arrs,
-                                               factors, key)
+                                               factors, key,
+                                               mesh=self._spread)
                 home.graphs[gkey] = graph
                 with self._lock:
                     self._stats["step_captures"] += 1

@@ -71,6 +71,14 @@ non-home shards ``(G-1)*q*Lp*k`` coming home once a mode step.
 
 A device may appear more than once: ``["cpu"] * G`` runs the group path on
 the CPU, and ``[cuda:0] * G`` on one card, each group on its own stream.
+
+A mesh whose groups all lie on one card has its steps captured as CUDA
+graphs (``repro_torch.graphs``): each segment of a capture forks every
+group's stream from the capturing stream (``fork``) and joins them back
+before it ends (``join``), so the groups' launches are branches of one
+graph. ``moved_bytes`` is counted in Python as a step runs; a captured
+step records its segments' counts (``graphs.tally``) and each replay adds
+them again (``add_moved``), so a captured run counts the eager run's bytes.
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.device import indexed_device, on_device
+from repro_torch.graphs import tally
 
 __all__ = ["RankMesh", "GroupTensor", "make_ranks_mesh", "u_space_bytes",
            "MOVE_KINDS"]
@@ -138,12 +147,31 @@ class RankMesh:
         with self._lock:
             return dict(self._moved)
 
+    def add_moved(self, kind: str, nbytes: int) -> None:
+        """Count ``nbytes`` of ``kind`` as crossed between groups."""
+        with self._lock:
+            self._moved[kind] += int(nbytes)
+
     def _count(self, t: torch.Tensor, crossed: bool, kind: str) -> None:
         if kind not in self._moved:
             raise ValueError(f"unknown crossing kind {kind!r}")
-        if crossed:
-            with self._lock:
-                self._moved[kind] += t.numel() * t.element_size()
+        nbytes = t.numel() * t.element_size()
+        if crossed and tally(self, kind, nbytes):
+            self.add_moved(kind, nbytes)
+
+    def fork(self, stream) -> None:
+        """Every group's stream waits for the work queued on ``stream`` (a
+        CUDA stream at home): under capture, each group joins it."""
+        for s in self.streams:
+            if s is not None:
+                s.wait_stream(stream)
+
+    def join(self, stream) -> None:
+        """``stream`` waits for the work queued on every group's stream:
+        under capture, each group's branch ends in it."""
+        for s in self.streams:
+            if s is not None:
+                stream.wait_stream(s)
 
     @contextlib.contextmanager
     def group(self, g: int):
@@ -315,6 +343,21 @@ class GroupTensor:
         f = part.new_zeros((self.mesh.P,) + tuple(part.shape[1:]))
         f[r.start:r.stop] = part
         return f
+
+    def clone(self) -> "GroupTensor":
+        """A copy, each part cloned on its group's stream after the work
+        queued on the current stream; the current stream then waits for
+        the copies (a captured step's outputs, copied out after a
+        replay)."""
+        mesh = self.mesh
+        here = torch.cuda.current_stream(mesh.home) \
+            if mesh.home.type == "cuda" else None
+        if here is not None:
+            mesh.fork(here)
+        out = GroupTensor.build(mesh, lambda g: self.parts[g].clone())
+        if here is not None:
+            mesh.join(here)
+        return out
 
     # --------------------------------------------------------- operations
     @classmethod

@@ -20,8 +20,9 @@ module there instead of moving data itself:
   that card and CPU runs share signs. Eagerly it is ``fn`` of the tensors'
   host copies, moved back. Under capture it cuts the step: the graph
   captured so far ends as one **segment** and runs, ``fn`` reads its
-  outputs, and its results are copied into static device buffers through
-  pinned memory by the first nodes of the next segment.
+  outputs, and its results are copied into static device buffers of the
+  same strides through pinned memory by the first nodes of the next
+  segment.
 
 ``StepGraph.capture`` runs the step once eagerly on a side stream (the
 warm-up: kernels built, scratch grown, the upload slots counted), then
@@ -31,10 +32,22 @@ call then copies the new factors and draws in and replays the segments in
 order, running the host calls between them. A step with no host call is one
 segment; the default block step is two (the SVD cuts it), a sketch step
 four (the seed's QR, the power iteration's QR, the SVD). A failed capture
-raises; nothing falls back to the eager step. A step over a mesh of several
-device groups (``distributed.mesh``: its arrays hold ``groups``) is not
-captured: the executor runs it eagerly, and ``StepGraph.capture`` refuses
-it.
+raises; nothing falls back to the eager step.
+
+A step over a mesh of several device groups (``distributed.mesh``: its
+arrays hold ``groups``) whose groups all lie on the home's device is
+captured too, the counterpart of the reference's ``jax.jit`` of a
+``shard_map`` step. Each group launches on its own stream; at every
+segment's begin (after the first segment's staged copy) each group's stream
+is forked from the capturing stream (``RankMesh.fork``), so every launch a
+group makes belongs to the capture, and before every cut and the capture's
+end each is joined back (``RankMesh.join``). A replay launches each segment
+on the caller's stream, the groups' branches inside it. What the groups'
+crossings count (``RankMesh.moved_by_kind``) is counted in Python as the
+step runs; a capture records it per segment (``tally``) and every replay
+adds it again. A mesh over distinct cards is refused: a graph that spans
+cards cannot be checked on one card, so the executor runs those steps
+eagerly.
 
 Every step of one ``CaptureHome`` shares its memory pool, so replays of
 different steps must not overlap on the card: they are serialized under the
@@ -50,6 +63,7 @@ is handed to ``keep`` and lives as long as the step.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
@@ -57,7 +71,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["upload", "host_call", "keep", "StepGraph", "CaptureHome"]
+__all__ = ["upload", "host_call", "keep", "tally", "StepGraph",
+           "CaptureHome"]
 
 _STATE = threading.local()
 
@@ -108,6 +123,16 @@ def keep(*objs) -> None:
     rec = _recorder()
     if getattr(rec, "mode", None) == "capture":
         rec.kept.extend(objs)
+
+
+def tally(counter, kind: str, nbytes: int) -> bool:
+    """Whether ``counter`` (a ``RankMesh``) counts ``nbytes`` of ``kind``
+    that a step moves between groups now: outside a capture yes; in a
+    capture's eager warm-up no (it is not a run); in a capture yes, and they
+    are recorded against the segment being captured, so that every replay
+    of it adds them again."""
+    rec = _recorder()
+    return True if rec is None else rec.tally(counter, kind, nbytes)
 
 
 class _KeySlot:
@@ -165,15 +190,20 @@ class _Warmup:
         self.slots.append((make_host, tuple(val.shape), val.dtype))
         return val.to(device=dev)
 
+    def tally(self, counter, kind, nbytes) -> bool:
+        return False
+
 
 class StepGraph:
     """One captured step: its segments, host calls and static buffers."""
 
     mode = "capture"
 
-    def __init__(self, home: CaptureHome, arrs, factors):
+    def __init__(self, home: CaptureHome, arrs, factors, mesh=None):
         self.home = home
         self.arrs = arrs
+        self.mesh = mesh  # whose group streams each segment forks and joins
+        self.moved: list[collections.Counter] = []  # per segment
         self.shapes = tuple(tuple(f.shape) for f in factors)
         self.segments: list[torch.cuda.CUDAGraph] = []
         self.kept: list = []  # buffers outside the pool the launches use
@@ -190,18 +220,22 @@ class StepGraph:
 
     # ------------------------------------------------------------ capture
     @classmethod
-    def capture(cls, home: CaptureHome, fn: Callable, arrs, factors, key):
+    def capture(cls, home: CaptureHome, fn: Callable, arrs, factors, key,
+                mesh=None):
         """Warm up, capture and run ``fn(arrs, factors, key)``; returns the
-        step and its first outputs (copies)."""
+        step and its first outputs (copies). ``mesh`` is the ``RankMesh``
+        whose groups the step runs on (all on ``home.device``)."""
         from repro_torch.random import Key
 
-        if len(arrs.get("groups", ())) > 1:
+        if len(arrs.get("groups", ())) > 1 and (mesh is None or any(
+                d != home.device for d in mesh.devices)):
             raise ValueError(
-                "a step over several device groups runs eagerly: one "
-                "capture on one stream cannot hold the groups' streams "
-                "(the executor never captures it)")
+                "a step over several device groups is captured only when "
+                "every group lies on the home's device: a graph that spans "
+                "cards cannot be checked on one card (the executor runs it "
+                "eagerly)")
         dev = home.device
-        sg = cls(home, arrs, factors)
+        sg = cls(home, arrs, factors, mesh)
         sg.slot = _KeySlot(key)
         skey = Key(sg.slot, ())
         sg.factors = [torch.empty(f.shape, dtype=f.dtype, device=dev)
@@ -229,8 +263,8 @@ class StepGraph:
         sg._fill(sg._draw())
         torch.cuda.synchronize(dev)
         with torch.cuda.stream(home.stream), _recording(sg):
-            sg._begin(first=True)
             try:
+                sg._begin(first=True)
                 out = fn(arrs, sg.factors, skey)
                 sg._end()
             except BaseException:
@@ -244,7 +278,7 @@ class StepGraph:
                     "code twice")
             sg.single = not isinstance(out, (tuple, list))
             sg.outputs = (out,) if sg.single else tuple(out)
-            sg._replay_segment(len(sg.segments) - 1)
+            sg._replay_segment(len(sg.segments) - 1, count=False)
             result = sg._results()
         caller.wait_stream(home.stream)
         sg._done = torch.cuda.Event()
@@ -252,26 +286,42 @@ class StepGraph:
         home.last.record(caller)
         return sg, result
 
-    def _begin(self, first: bool = False) -> None:
+    def _begin(self, first: bool = False, copies=()) -> None:
+        """Begin a segment: the first one copies every upload slot in, a
+        later one the host call's results (``copies``: (device, pinned)
+        pairs); then every group's stream forks from the capture."""
         self._graph = torch.cuda.CUDAGraph()
         self._graph.capture_begin(pool=self.home.pool,
                                   capture_error_mode="thread_local")
+        self.moved.append(collections.Counter())
         if first:  # every upload slot, in one copy
             self.staged.copy_(self.pinned, non_blocking=True)
+        for d, p in copies:
+            d.copy_(p, non_blocking=True)
+        if self.mesh is not None:
+            self.mesh.fork(self.home.stream)
 
     def _end(self) -> None:
+        """Join every group's stream back, and end the segment."""
+        if self.mesh is not None:
+            self.mesh.join(self.home.stream)
         self._graph.capture_end()
         self.segments.append(self._graph)
         self._graph = None
 
     def _abort(self) -> None:
-        """End a capture that failed, so the stream is usable again."""
+        """End a capture that failed, so the streams are usable again."""
         if self._graph is not None:
-            try:
+            if self.mesh is not None:
+                with contextlib.suppress(RuntimeError):
+                    self.mesh.join(self.home.stream)
+            with contextlib.suppress(RuntimeError):
                 self._graph.capture_end()
-            except RuntimeError:
-                pass
             self._graph = None
+
+    def tally(self, counter, kind, nbytes) -> bool:
+        self.moved[-1][counter, kind] += nbytes
+        return True
 
     def upload(self, make_host, dev) -> torch.Tensor:
         i = self._next_slot
@@ -286,18 +336,22 @@ class StepGraph:
         """End the segment, run it, run ``fn`` on the host, and begin the
         next segment with the copies of its results."""
         self._end()
-        self._replay_segment(len(self.segments) - 1)
+        # the capture counted this segment's crossings as it ran
+        self._replay_segment(len(self.segments) - 1, count=False)
         outs = fn(*(t.cpu() for t in tensors))
         single = isinstance(outs, torch.Tensor)
         outs = (outs,) if single else tuple(outs)
-        pinned = tuple(torch.empty(o.shape, dtype=o.dtype,
-                                   pin_memory=True).copy_(o) for o in outs)
-        dev = tuple(torch.empty(o.shape, dtype=o.dtype,
-                                device=self.home.device) for o in outs)
+        # the buffers keep the results' strides (LAPACK's column-major
+        # factors), as an eager host call's results keep them: a product
+        # that reads one then makes the eager step's library call
+        pinned = tuple(torch.empty_strided(o.shape, o.stride(), dtype=o.dtype,
+                                           pin_memory=True).copy_(o)
+                       for o in outs)
+        dev = tuple(torch.empty_strided(o.shape, o.stride(), dtype=o.dtype,
+                                        device=self.home.device)
+                    for o in outs)
         self.host_ops.append(_HostOp(fn, tuple(tensors), pinned, dev))
-        self._begin()
-        for d, p in zip(dev, pinned):
-            d.copy_(p, non_blocking=True)
+        self._begin(copies=zip(dev, pinned))
         return dev[0] if single else dev
 
     # ------------------------------------------------------------- replay
@@ -317,11 +371,16 @@ class StepGraph:
             self.pinned[off:off + n].copy_(val.reshape(-1))
 
     def _results(self):
+        # a ``GroupTensor`` output clones its parts on their groups' streams
         result = tuple(o.clone() for o in self.outputs)
         return result[0] if self.single else result
 
-    def _replay_segment(self, i: int) -> None:
+    def _replay_segment(self, i: int, count: bool = True) -> None:
+        """Replay segment i; with ``count``, its crossings count again."""
         self.segments[i].replay()
+        if count:
+            for (counter, kind), n in self.moved[i].items():
+                counter.add_moved(kind, n)
 
     def __call__(self, arrs, factors, key):
         """Replay on the current stream with new factors and draws."""

@@ -443,6 +443,62 @@ def test_captured_step_bitwise_eager(cuda, warm_start, path):
     assert ex.stats()["step_compilations"] == 3
 
 
+def test_host_call_results_keep_their_strides_under_capture(cuda):
+    """A host call's results keep their strides in a captured step, as an
+    eager host call's keep LAPACK's column-major factors: a product that
+    reads one makes the eager step's library call, so the captured step
+    gives the eager step's bits (ROADMAP Queue C item 6)."""
+    from repro_torch.core import lanczos
+    from repro_torch.graphs import CaptureHome, StepGraph, host_call
+
+    g = torch.Generator().manual_seed(0)
+    B = torch.diag(torch.rand(24, generator=g) + 1) + torch.diag(
+        torch.rand(23, generator=g), 1)
+    arrs = {"B": B.to(cuda), "U": torch.randn((4, 3024, 24), generator=g)
+            .to(cuda)}
+    factors = [torch.ones((2, 2), device=cuda)]
+
+    def step(arrs, factors, key):
+        P, S = host_call(lanczos._host_svd, arrs["B"] * factors[0][0, 0])
+        return P, arrs["U"] @ P[:, :10]
+
+    want = step(arrs, factors, None)
+    home = CaptureHome(torch.device("cuda", torch.cuda.current_device()))
+    graph, got = StepGraph.capture(home, step, arrs, factors, make_key(0))
+    assert got[0].stride() == want[0].stride()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    again = graph(arrs, factors, make_key(1))
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
+
+
+@pytest.mark.parametrize("path", ["baseline", "liteopt"])
+def test_captured_step_bitwise_eager_at_3m(cuda, path):
+    """ROADMAP Queue C item 6's plan (a 3M-element tensor, P = 4, core
+    (10, 10, 10), ``fused_block8``): every captured mode step gives the
+    eager step's bits."""
+    core = (10, 10, 10)
+    t = synth_tensor((1200, 900, 2800), 3_000_000)
+    pl = port_plan.plan(t, "lite", 4, core_dims=core, path=path)
+    ex = HooiExecutor(4)
+    specs = ex._mode_specs(pl, core, path, block_size=8, fused_zbuild=True)
+    up = ex._get_upload(pl, t, exmod._tally())
+    factors = hooi.random_factors(t.shape, core, make_key(21), "cuda")
+    for mp, sp in zip(pl.parts, specs):
+        kw = dict(use_fused=True, precision=sp.precision,
+                  block_size=sp.block_size, fused_zbuild=sp.fused_zbuild,
+                  warm_start=sp.warm_start)
+        skey, step = ex._get_step(mp, sp.backend, sp.K_n, niter=sp.niter,
+                                  objective=sp.objective, **kw)
+        eager = make_mode_step_fn(exmod.step_spec(mp, **kw), sp.backend,
+                                  sp.K_n, sp.niter)
+        key = make_key(22).fold_in(1000 + mp.mode)
+        want = eager(up.arrs[mp.mode], factors, key)
+        for _ in range(2):  # the capture, then a replay
+            got = ex._call_step(skey, step, up, up.arrs[mp.mode], factors,
+                                key, exmod._tally())
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def _stacked_call(P, device):
     """An ``oracle_pair`` call over P stacked ranks at nell-2's mode-2
     rows (K = 100, s = 8): its scratch grows with P."""
@@ -671,14 +727,14 @@ def test_scheduler_ladder_on_card(cuda, monkeypatch):
     captures = []
     original = StepGraph.capture.__func__
 
-    def spy(cls, home, fn, arrs, factors, key):
+    def spy(cls, home, fn, arrs, factors, key, **kw):
         seen = []
 
         def step(a, f, k):
             seen.append(torch.cuda.current_stream(home.device))
             return fn(a, f, k)
 
-        out = original(cls, home, step, arrs, factors, key)
+        out = original(cls, home, step, arrs, factors, key, **kw)
         captures.append((threading.current_thread().name,
                          torch.cuda.current_stream(home.device), home.stream,
                          seen))
@@ -735,7 +791,7 @@ def test_producer_staging_during_a_capture(cuda, monkeypatch):
     capturing, staged = threading.Event(), threading.Event()
     original = StepGraph.capture.__func__
 
-    def capture(cls, home, fn, arrs, factors, key):
+    def capture(cls, home, fn, arrs, factors, key, **kw):
         def step(a, f, k):
             if torch.cuda.is_current_stream_capturing() \
                     and not capturing.is_set():
@@ -743,7 +799,7 @@ def test_producer_staging_during_a_capture(cuda, monkeypatch):
                 assert staged.wait(60), "the producer never staged"
             return fn(a, f, k)
 
-        return original(cls, home, step, arrs, factors, key)
+        return original(cls, home, step, arrs, factors, key, **kw)
 
     ex = HooiExecutor(4)
     stage = ex.stage_upload
@@ -956,7 +1012,10 @@ def _geometric_case():
 
 
 MESH_KNOBS = {"fused_block8": dict(lanczos_block=8, fused_zbuild=True),
-              "vector": {}}
+              "vector": {},
+              # its last segment opens on the groups' draws (the Lanczos
+              # restarts), before any crossing orders a group behind home
+              "sketch": dict(lanczos_block=8, warm_start="sketch")}
 
 
 @pytest.mark.parametrize("knob", sorted(MESH_KNOBS))
@@ -965,9 +1024,10 @@ def test_mesh_on_one_card_bitwise_stacked(cuda, path, knob):
     """``[cuda:0] * G`` meshes (each group on its own stream) give the
     stacked executor's factors, core and fits bitwise, reruns too, with
     the group path's launches: one Z-build and one ``oracle_pair`` a
-    group a product, each on its group's stream and current device. The
-    stacked run is eager, as a mesh's steps run (a captured step may round
-    apart from the same step run eagerly)."""
+    group a product, each on its group's stream and current device. Both
+    run eagerly, their captures off (a captured step may round apart from
+    the same step run eagerly; the captured mesh is
+    ``test_mesh_captured_bitwise``'s)."""
     from repro_torch.kernels import ops as kops
 
     t, pl = _geometric_case()
@@ -989,6 +1049,7 @@ def test_mesh_on_one_card_bitwise_stacked(cuda, path, knob):
     for G in (2, 4):
         mesh = make_ranks_mesh(4, devices=[cuda] * G)
         ex = HooiExecutor(4, mesh=mesh)
+        ex._home = None  # its captures off
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(kops, "kron_segsum_gather",
                        spy(kops.kron_segsum_gather))
@@ -1012,6 +1073,154 @@ def test_mesh_on_one_card_bitwise_stacked(cuda, path, knob):
         # the core's build over the full COO at home
         assert {s for _, _, s in seen} == streams | {home}
         assert st.group_bytes > 0
+
+
+def _mesh_launch_spy(seen: list):
+    """Patches for the two launch sites of ``kernels.ops``: each call
+    records whether the current stream is capturing and its handle."""
+    from repro_torch.kernels import ops as kops
+
+    def spy(real):
+        def call(*a, **k):
+            seen.append((torch.cuda.is_current_stream_capturing(),
+                         torch.cuda.current_stream().cuda_stream))
+            return real(*a, **k)
+        return call
+
+    return [(kops, "kron_segsum_gather", spy(kops.kron_segsum_gather)),
+            (kops, "_oracle_pair_kernel", spy(kops._oracle_pair_kernel))]
+
+
+def _equal_runs(a, b) -> bool:
+    (dec, st), (wdec, wst) = a, b
+    return st.fits == wst.fits and torch.equal(dec.core, wdec.core) and all(
+        torch.equal(x, y) for x, y in zip(dec.factors, wdec.factors))
+
+
+@pytest.mark.parametrize("G", [2, 4])
+@pytest.mark.parametrize("knob", sorted(MESH_KNOBS))
+@pytest.mark.parametrize("path", ["baseline", "liteopt"])
+def test_mesh_captured_bitwise(cuda, path, knob, G):
+    """A ``[cuda:0] * G`` mesh's steps captured as CUDA graphs: the first
+    run captures, with every recorded launch on its group's stream (each
+    group's) and the bits of the stacked captured run and of the same mesh
+    run eagerly, and the eager run's bytes between groups, by kind; a
+    rerun captures, compiles and uploads nothing and replays, bitwise; a
+    replay with another seed (new factors and draws) is that seed's eager
+    run, not the first run's; its first sweep is a cold calibration
+    sample labelled with the groups."""
+    t, pl = _geometric_case()
+    kw = dict(n_invocations=2, path=path, seed=4, use_fused_oracle=True,
+              **MESH_KNOBS[knob])
+    want = HooiExecutor(4).run(t, (5, 5, 5), pl, **kw)
+    eager_ex = HooiExecutor(4, mesh=make_ranks_mesh(4, devices=[cuda] * G))
+    eager_ex._home = None  # its captures off
+    eager = eager_ex.run(t, (5, 5, 5), pl, **kw)
+    other = eager_ex.run(t, (5, 5, 5), pl, **dict(kw, seed=5))
+
+    mesh = make_ranks_mesh(4, devices=[cuda] * G)
+    ex = HooiExecutor(4, mesh=mesh)
+    seen: list = []
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name, fn in _mesh_launch_spy(seen):
+            mp.setattr(mod, name, fn)
+        got = ex.run(t, (5, 5, 5), pl, **kw)
+    st = got[1]
+    assert st.groups == G and st.step_captures == 3
+    assert _equal_runs(got, want) and _equal_runs(got, eager)
+    assert (st.group_bytes_u, st.group_bytes_factors) == \
+        (eager[1].group_bytes_u, eager[1].group_bytes_factors)
+    captured = {s for capturing, s in seen if capturing}
+    assert captured == {s.cuda_stream for s in mesh.streams}
+    samples = ex.calibration_samples()
+    assert samples[0]["warm"] is False and samples[-1]["warm"] is True
+    assert all(s["groups"] == G for s in samples)
+    segments = {len(g.segments) for g in ex._uploads[pl].graphs.values()}
+    assert segments == {4 if knob == "sketch" else 2}
+
+    again = ex.run(t, (5, 5, 5), pl, **kw)
+    ast = again[1]
+    assert (ast.step_compilations, ast.step_captures, ast.uploads) == \
+        (0, 0, 0)
+    assert ast.graph_replays == 6 and _equal_runs(again, got)
+    assert ast.group_bytes == st.group_bytes
+    moved = ex.run(t, (5, 5, 5), pl, **dict(kw, seed=5))
+    assert moved[1].step_captures == 0 and moved[1].graph_replays == 6
+    assert _equal_runs(moved, other) and not _equal_runs(moved, got)
+    assert moved[1].group_bytes == other[1].group_bytes
+
+
+def test_failed_mesh_capture_raises(cuda):
+    """A mesh capture whose group streams are not joined back before a
+    segment ends (a mutant of the join at a cut) raises from ``run``; the
+    step is not run eagerly instead (the warm-up and the capture are its
+    only calls), nothing counts as captured, and the mesh's streams and a
+    fresh capture on the same mesh work afterwards."""
+    from repro_torch.distributed.mesh import RankMesh
+
+    t, pl = _geometric_case()
+    kw = dict(n_invocations=1, path="liteopt", seed=4, lanczos_block=8,
+              fused_zbuild=True, use_fused_oracle=True)
+    mesh = make_ranks_mesh(4, devices=[cuda] * 2)
+    ex = HooiExecutor(4, mesh=mesh)
+    calls = []
+    real_get = ex._get_step
+
+    def get_step(*a, **k):
+        skey, step = real_get(*a, **k)
+
+        def counted(*args):
+            calls.append(skey)
+            return step(*args)
+        return skey, counted
+
+    real_join = RankMesh.join
+
+    def join(self, stream):
+        if not torch.cuda.is_current_stream_capturing():
+            real_join(self, stream)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ex, "_get_step", get_step)
+        mp.setattr(RankMesh, "join", join)
+        with pytest.raises(RuntimeError):
+            ex.run(t, (5, 5, 5), pl, **kw)
+    assert len(calls) == 2  # the warm-up and the capture, no eager call
+    assert ex.stats()["step_captures"] == 0
+    for g in range(mesh.G):
+        with mesh.group(g):
+            torch.ones(8, device=cuda).sum()
+    torch.cuda.synchronize()
+    fresh = HooiExecutor(4, mesh=mesh)
+    _, st = fresh.run(t, (5, 5, 5), pl, **kw)
+    assert st.step_captures == 3
+
+
+def test_run_stochastic_on_mesh_captures(cuda):
+    """The stochastic rung of a mesh executor runs at home, with no groups,
+    and is captured as the stacked executor's is: 3 captures, a rerun
+    0/0/0, the stacked executor's bits; ``profile_phases`` on the mesh
+    captures its Z-build and mode steps too."""
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    core = (5, 5, 5)
+    covered = t.nnz - t.nnz // 100
+    init = hooi.random_factors(t.shape, core, make_key(4), "cpu")
+    kw = dict(init_factors=init, covered_nnz=covered, sample_fraction=0.25,
+              sample_seed=7, replay_nnz=256, n_invocations=2, seed=1)
+    pl = port_plan.plan(t, "lite", 4, core_dims=core)
+    want_dec, want = HooiExecutor(4).run_stochastic(t, core, pl, **kw)
+    ex = HooiExecutor(4, mesh=make_ranks_mesh(4, devices=[cuda] * 2))
+    dec, st = ex.run_stochastic(t, core, pl, **kw)
+    assert st.step_captures == 3 and st.fits == want.fits
+    assert all(torch.equal(a, b) for a, b in zip(dec.factors,
+                                                 want_dec.factors))
+    _, again = ex.run_stochastic(t, core, pl, **kw)
+    assert (again.step_compilations, again.step_captures,
+            again.uploads) == (0, 0, 0) and again.graph_replays > 0
+    before = ex.stats()["step_captures"]
+    ex.profile_phases(t, core, pl, repeats=1, lanczos_block=8,
+                      fused_zbuild=True, use_fused_oracle=True)
+    assert ex.stats()["step_captures"] - before == 6
 
 
 @pytest.mark.parametrize("G", [2, 4])
