@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure (nothing is caught):
 
-1. environment: torch and CUDA versions, the card's name and power limit;
+1. environment: torch and CUDA versions, the card's name and power limit,
+   the ``REPRO_*`` knobs as resolved (``envknobs.snapshot()``);
 2. build: ``nvcc`` compiles every kernel of ``src/repro_torch/kernels/csrc``
    (one process per source, in parallel);
 3. kernels against their plain PyTorch versions on the card:
@@ -89,7 +90,9 @@ Phases, each fatal on failure (nothing is caught):
     on the card against the CPU;
 16. ``StreamScheduler`` on a fresh shared executor (P = 4, the earlier
     phases' plan released) through the refresh ladder, the stream seeded
-    with the nell-2-sized tensor (geometric pads, its own plan build):
+    with every second element of the nell-2-sized tensor (30,689,886
+    elements, its skew kept; cut for time), geometric pads, its own plan
+    build:
     ``plan`` (then a direct run bitwise its fits), ``reuse`` (0
     compilations, captures, uploads), 1% new elements ->
     ``stochastic-refine`` (the snapshot's ``_true_norm2`` spares its fits
@@ -100,7 +103,7 @@ Phases, each fatal on failure (nothing is caught):
     drift, ``prepare_s``/``run_s``/``queue_wait_s``, captures, uploads,
     replays and fits, then ``scheduler.stats()``, the appends' seconds and
     the host's peak RSS; then, on the reselect plan's stacked partitions
-    (E_pad 2^25 per rank, the hub batch's elements in a few rows of every
+    (E_pad 2^24 per rank, the hub batch's elements in a few rows of every
     mode, the largest row's count logged), the gather-form ``kron_segsum``
     against its plain version (summed in element chunks) and
     ``oracle_pair`` on that Z against its plain version, each rerun
@@ -124,8 +127,17 @@ Phases, each fatal on failure (nothing is caught):
     compilations, captures and uploads, and the launch counts and peak
     memory of the phase.
 
-18. the mesh on phase 8's default-pad plan (right after phase 15, on the
-    shared executor's resident plan): P = 4 over ``[cuda:0] * G`` for
+18. the paper's scheme comparison at nell-2 size (right after phase 15):
+    a CoarseG plan (``coarse``, LPT) and a MediumG plan (``medium``) for
+    P = 4, each built outside the plan cache and run with ``fused_block8``
+    on boundary and psum through captured steps, each rerun bitwise with 0
+    captures and 0 uploads, held to phase 8's Lite runs (fits within 1e-4,
+    the final core's energy share within 2e-6 relative of the nearer of
+    Lite's psum and boundary runs); per scheme the
+    plan's host seconds, the replayed sweep, ``E_pad``/``R_pad``/``Lp``,
+    ``SchemeMetrics``, the modeled bytes per sweep by kind, peak memory,
+    and what ``auto`` would pick from the plans' modeled seconds;
+19. the mesh (after the pool, phase 17): P = 4 over ``[cuda:0] * G`` for
     G = 2 and 4 (``make_ranks_mesh``, ``HooiExecutor(4, mesh=)``, each
     group on its own stream), ``fused_block8`` on psum and boundary and
     one vector run (G = 2), each against the stacked captured run of the
@@ -156,15 +168,36 @@ Phases, each fatal on failure (nothing is caught):
     (``cudaGraphLaunch``) per sweep, kernel executions per replayed sweep
     (the launches the captures recorded, and the core's), and peak memory
     captured beside eager;
-19. the same on phase 17's geometric-pad reselect plan (E_pad 2^25, every
-    group's first element at a multiple of CHUNK), after the pool, against
-    a fresh stacked executor: every run bitwise against the stacked run
-    (eager rows against the stacked eager run, captured rows against the
-    stacked captured run).
+    on phase 17's geometric-pad reselect plan (E_pad 2^24, every group's
+    first element at a multiple of CHUNK), against a fresh stacked
+    executor: every run bitwise against the stacked run (eager rows
+    against the stacked eager run, captured rows against the stacked
+    captured run). Cut for time: the default-pad plan's mesh rows, which
+    earlier runs also drove;
+20. the scheme comparison at medium size: nell-2's shape with 1,000,000
+    draws (the paper runs HyperG on medium tensors only: its partitioner
+    loops over the elements in Python), Lite, CoarseG, MediumG and HyperG
+    (``hypergraph``) side by side as in phase 18, each held to Lite's runs;
+21. four modes at FROSTT enron's size, nothing cut: ``synth_tensor((6066,
+    5699, 244268, 1176), 54_202_099)`` under the repo's ``enron-s`` skew
+    and hub (``SUITE_SPECS``), seed 0, core (10, 10, 10, 10), K̂ = 1000, on
+    a fresh shared executor: ``hooi`` for one invocation; every kernel at
+    its shapes (the gather-form ``kron_segsum``, the leading factors folded
+    into ``a`` on the card, against its plain Z summed in element chunks,
+    the chunk walk and the hub row's fix-up timed apart; ``oracle_pair`` at
+    K = 1000 beside ``torch.matmul``); a Lite plan for P = 4 and
+    ``dist_hooi`` with ``fused_block8`` on boundary and psum through
+    captured steps, each rerun on the cached plan with 0 captures and 0
+    uploads, bitwise; ``kron_segsum_oracle`` and the stacked
+    ``oracle_pair`` at the distributed shapes; then the paper suite's
+    enron-s mirror (``paper_suite``) on the card against the CPU, single
+    process and P = 4 on both backends (fits within 1e-4).
 
-The distributed phases (7, 8, 9, 13, 14, 15, 18, 16, 17, 19) run right
-after the kernel checks (3); when the run is late, the single-process
-paths are cut to one invocation (never their shape).
+Phase 21 runs first, right after the build (nothing else resident, and
+the profiler still records its kernels); the distributed phases (7, 8, 9,
+13, 14, 15, 18, 16, 17, 19, 20) run right after the kernel checks (3); when
+the run is late, the single-process paths are cut to one invocation (never
+their shape).
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and power
 limit line, and as the last line ``{"ok": true, "device": {...}}``. Without
@@ -213,6 +246,10 @@ TOL = 2e-4
 # the run must end within 1200 s; past this point the main path is cut to
 # one invocation (never the shape)
 CUT_INVOCATIONS_AFTER_S = 600.0
+
+# kernel records a profiled session must keep for their mean device time
+# when it kept fewer than half of its kernels (see device_ms)
+MIN_RECORDS = 32
 
 T_START = time.perf_counter()
 
@@ -322,9 +359,10 @@ def device_ms(fn, reps: int, match: str | None = None,
     kernels whose name holds it, each call launching ``per_call`` of them,
     as the mean recorded kernel time times ``per_call``. The profiler on
     the card drops some records of a session (the first kernel nearly
-    always, now and then most of them), so a session that recorded fewer
-    than half of the ``reps * per_call`` kernels is profiled again, up to
-    three times."""
+    always; late in a run it keeps 39–42 of 100 in every session), so a
+    session that recorded fewer than half of the ``reps * per_call``
+    kernels, and fewer than ``MIN_RECORDS``, is profiled again, up to three
+    times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -342,7 +380,7 @@ def device_ms(fn, reps: int, match: str | None = None,
         seen = sum(n for _, n in hits)
         if total > 0 and match is None:
             return total / reps
-        if total > 0 and 2 * seen >= want:
+        if total > 0 and (2 * seen >= want or seen >= MIN_RECORDS):
             return total / seen * per_call
         log(f"  profiler recorded {seen} of {want} {match} kernels; "
             "profiling again")
@@ -531,8 +569,9 @@ def z_passes_per_mode(shape, warm: str) -> list[int]:
     return out
 
 
-def run_single(t, label: str, invocations: int, fits_ok=None, **kw) -> dict:
-    """``hooi`` on the card at CORE with ``use_fused_oracle=True`` and
+def run_single(t, label: str, invocations: int, fits_ok=None, core=CORE,
+               **kw) -> dict:
+    """``hooi`` on the card at ``core`` with ``use_fused_oracle=True`` and
     ``kw``, every kernel's launches read around it; logs fits, launches
     per sweep, sweep seconds and peak memory."""
     import torch
@@ -551,7 +590,7 @@ def run_single(t, label: str, invocations: int, fits_ok=None, **kw) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    dec, fits = hooi(t, CORE, n_invocations=invocations, seed=0,
+    dec, fits = hooi(t, core, n_invocations=invocations, seed=0,
                      use_fused_oracle=True, on_sweep=on_sweep,
                      metrics_out=metrics, device=DEVICE, **kw)
     torch.cuda.synchronize()
@@ -570,7 +609,7 @@ def run_single(t, label: str, invocations: int, fits_ok=None, **kw) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on {label}")
     for n, F in enumerate(dec.factors):
-        if tuple(F.shape) != (t.shape[n], CORE[n]) or \
+        if tuple(F.shape) != (t.shape[n], core[n]) or \
                 not bool(torch.isfinite(F).all()):
             raise AssertionError(f"{label} factor {n} bad: "
                                  f"{tuple(F.shape)}")
@@ -1009,9 +1048,10 @@ def launch_census(prof) -> dict:
     return out
 
 
-def dist_run(t, pl, path: str, label: str, **kw):
-    """One ``dist_hooi`` call on the shared executor, launch counts and peak
-    memory read around it; returns (dec, stats, record)."""
+def dist_run(t, pl, path: str, label: str, core=CORE, **kw):
+    """One ``dist_hooi`` call on the shared executor at ``core``, launch
+    counts and peak memory read around it; returns (dec, stats, record),
+    the record with the final core's energy share."""
     import torch
     from repro_torch.distributed.dist_hooi import dist_hooi
 
@@ -1021,7 +1061,7 @@ def dist_run(t, pl, path: str, label: str, **kw):
     reset_launch_counts()
     t0 = time.perf_counter()
     args = dict(dist_kwargs(), **kw)
-    dec, st = dist_hooi(t, CORE, DIST_P, scheme=pl, path=path,
+    dec, st = dist_hooi(t, core, DIST_P, scheme=pl, path=path,
                         n_invocations=DIST_INVOCATIONS, **args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1041,7 +1081,7 @@ def dist_run(t, pl, path: str, label: str, **kw):
         f"z_passes={st.z_passes} lanczos_block={st.lanczos_block} "
         f"launches={launches} max_memory_allocated={peak / 2**30:.3f} GiB")
     check_fits(st.fits, f"dist_hooi {label}")
-    if st.step_captures + st.graph_replays != len(CORE) * DIST_INVOCATIONS:
+    if st.step_captures + st.graph_replays != len(core) * DIST_INVOCATIONS:
         raise AssertionError(f"{label}: {st.step_captures} captures and "
                              f"{st.graph_replays} replays, not one a step")
     # a capture's eager warm-up launches every kernel of the step; a run
@@ -1054,11 +1094,12 @@ def dist_run(t, pl, path: str, label: str, **kw):
             raise AssertionError(f"{name} was not launched on the "
                                  f"distributed path ({label})")
     for n, F in enumerate(dec.factors):
-        if tuple(F.shape) != (t.shape[n], CORE[n]) or \
+        if tuple(F.shape) != (t.shape[n], core[n]) or \
                 not bool(torch.isfinite(F).all()):
             raise AssertionError(f"dist factor {n} bad: {tuple(F.shape)}")
     return dec, st, {"stats": st, "launches": launches, "peak_bytes": peak,
-                     "wall_s": wall, "steady_s": float(np.mean(steady))}
+                     "wall_s": wall, "steady_s": float(np.mean(steady)),
+                     "core_share": core_share(t, dec.core)}
 
 
 def phase_dist(t) -> dict:
@@ -1345,6 +1386,10 @@ LADDER = ("plan", "reuse", "stochastic-refine", "repartition", "reuse",
           "reselect")
 LADDER_DRIFT_TOL = 0.25  # StreamScheduler's default
 HUB_SHARE = 0.18  # hub batch over the seed's elements (see phase_scheduler)
+# the ladder's stream is seeded with every LADDER_STRIDE-th element of the
+# nell-2-sized tensor (its skew and every slice kept): cut for time, so that
+# the four-mode and scheme phases run at full size
+LADDER_STRIDE = 2
 
 
 def host_peak_rss_gib() -> float:
@@ -1355,7 +1400,8 @@ def host_peak_rss_gib() -> float:
 
 def phase_scheduler(t, stoch: dict) -> dict:
     """``StreamScheduler`` on the shared executor through every rung of the
-    refresh ladder, the stream seeded with the nell-2-sized tensor ``t``:
+    refresh ladder, the stream seeded with every ``LADDER_STRIDE``-th
+    element of the nell-2-sized tensor ``t``:
 
     1. ``plan``: the seed snapshot, its Lite plan built with geometric pads
        (the scheduler's default); then a direct ``ex.run`` on that plan,
@@ -1388,18 +1434,20 @@ def phase_scheduler(t, stoch: dict) -> dict:
     from repro_torch.streaming import StreamingTensor
 
     t0 = time.perf_counter()
-    stream = StreamingTensor.from_tensor(t, name="nell-2")
+    stream = StreamingTensor.from_tensor(
+        t.take(np.arange(0, t.nnz, LADDER_STRIDE)), name="nell-2")
     snap = stream.snapshot()
     out = {"rungs": [], "append_s": [], "launches_by_group": [],
            "seed_append_s": time.perf_counter() - t0}
-    log(f"stream seeded with the main tensor in {out['seed_append_s']:.3f} "
-        f"s (append and snapshot); host peak RSS "
+    log(f"CUT: the ladder's stream seeded with every {LADDER_STRIDE}th "
+        f"element of the main tensor ({snap.nnz} of {t.nnz}) in "
+        f"{out['seed_append_s']:.3f} s (append and snapshot); host peak RSS "
         f"{host_peak_rss_gib():.3f} GiB")
     ex = shared_executor(DIST_P)
     nnz = snap.nnz
     rng = np.random.default_rng(11)
-    new = synth_tensor(MAIN_SHAPE, MAIN_NNZ // 100, alphas=MAIN_ALPHAS,
-                       seed=1)
+    new = synth_tensor(MAIN_SHAPE, MAIN_NNZ // (100 * LADDER_STRIDE),
+                       alphas=MAIN_ALPHAS, seed=1)
     updates = snap.coords[rng.integers(0, nnz, nnz // 100)]
     hub = int(HUB_SHARE * nnz)
     appends = [None, None, (new.coords, new.values),
@@ -1584,15 +1632,12 @@ HUB_CHUNK = 1 << 20  # elements per partial sum of the plain Z (hub checks)
 def _hub_checks(ex, pl, factors) -> dict:
     """The kernels at the reselect rung's shapes, on the arrays its steps
     ran over (the executor's resident upload of ``pl``: every mode's
-    stacked partition, E_pad 2^25 per rank, a few rows holding the hub
-    batch) and the rung's factors, each rerun bitwise:
+    stacked partition, E_pad a power of two per rank, a few rows holding
+    the hub batch) and the rung's factors, each rerun bitwise:
 
     * the gather-form ``kron_segsum`` (``penultimate_sorted``, f32, as the
-      vector-Lanczos step calls it) against its plain version; the plain Z
-      is summed over ``HUB_CHUNK``-element slices (``ref.kron_segsum_ref``
-      on each, added up in float64), so it fits beside the operands and
-      one f32 ``index_add_`` over a hub row's millions of terms does not
-      carry its own rounding into the comparison;
+      vector-Lanczos step calls it) against its plain version, summed over
+      ``HUB_CHUNK``-element slices (``plain_z``);
     * ``oracle_pair`` on that Z as the vector Lanczos calls it: ``Z @ x``
       over all stacked rows and the stacked ``Zᵀ y`` (P ranks, s = 1),
       against its plain version.
@@ -1614,13 +1659,7 @@ def _hub_checks(ex, pl, factors) -> dict:
         hub_row = int(per_row.argmax())
         got = ops.penultimate_sorted(c, v, rows, factors, mode, R)
         again = ops.penultimate_sorted(c, v, rows, factors, mode, R)
-        want = torch.zeros(got.shape, dtype=torch.float64, device=dev)
-        for lo in range(0, E, HUB_CHUNK):
-            sl = slice(lo, min(E, lo + HUB_CHUNK))
-            a, b = ops._split_ab(c[sl], v[sl], factors, mode)
-            want += ref.kron_segsum_ref(rows[sl], a, b, R)
-            del a, b
-        want = want.float()
+        want = plain_z(rows, c, v, factors, mode, R, HUB_CHUNK)
         errs["kron_segsum"] = max(errs["kron_segsum"], check(
             f"reselect plan mode {mode}: gather kron_segsum E={E} "
             f"(P={P} x E_pad {mp.E_pad}) rows={R} K={got.shape[1]}, hub "
@@ -1996,10 +2035,9 @@ def unsharded_group_bytes(ex, pl, shape, path: str, knobs: dict) -> int:
 
 
 def core_share(t, core) -> float:
-    """‖G‖²/‖T‖², summed in f64."""
+    """‖G‖²/‖T‖², summed in f64 (‖T‖ by ``SparseTensor.norm``)."""
     tt = getattr(t, "_true_norm2", None)
-    tt = float(tt) if tt is not None else float(
-        np.sum(np.asarray(t.values, np.float64) ** 2))
+    tt = float(tt) if tt is not None else t.norm() ** 2
     return float(np.sum(core.double().cpu().numpy() ** 2)) / tt
 
 
@@ -2165,11 +2203,11 @@ def mesh_census(ex, t, pl, label: str, device_type: str = "cuda") -> dict:
     return out
 
 
-def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
+def phase_mesh(t, pl, name: str, bitwise: bool) -> dict:
     """P = 4 ranks over ``[cuda:0] * G`` meshes, G in ``MESH_GROUPS``, on
     plan ``pl`` of ``t``: each of ``MESH_RUNS`` against the stacked run of
-    the same plan, seed and draws run eagerly, as a mesh's steps run
-    (``stacked_ex`` with its captures off; a fresh executor when None):
+    the same plan, seed and draws run eagerly, as a mesh's steps run (a
+    fresh stacked executor with its captures off):
     bitwise where ``bitwise`` (every group's first element at a multiple
     of the chunk kernel's CHUNK) and else bitwise or within the f32 bars;
     a rerun bitwise with 0 uploads and 0 compilations; every group's
@@ -2210,7 +2248,7 @@ def phase_mesh(t, pl, name: str, bitwise: bool, stacked_ex=None) -> dict:
                              "chunk boundary")
     out = {"runs": {}, "comm": comm, "captured": {}, "stacked": {},
            "census": {}}
-    stacked = stacked_ex if stacked_ex is not None else HooiExecutor(DIST_P)
+    stacked = HooiExecutor(DIST_P)
     for label, path, kw in MESH_RUNS:
         out["captured"][label] = mesh_run(
             stacked, t, pl, f"stacked captured {label}", path, kw)
@@ -2758,6 +2796,478 @@ def phase_dist_timings(pl, factors) -> dict:
     return out
 
 
+# the four-mode phase: FROSTT enron's shape and nonzeros drawn under the
+# repo's enron-s skew and hub (SUITE_SPECS), nothing cut
+ENRON_SHAPE = (6066, 5699, 244268, 1176)
+ENRON_NNZ = 54_202_099
+CORE4 = (10, 10, 10, 10)  # the paper's 10 per mode: K̂ = 1000
+PLAIN_CHUNK = 1 << 18  # elements per partial sum of a plain Z at K̂ = 1000
+# the scheme comparison: CoarseG and MediumG beside Lite at nell-2 size; all
+# four at medium size, where HyperG's partitioner (a Python loop over the
+# elements) can run, as the paper runs HyperG on medium tensors only
+MEDIUM_NNZ = 1_000_000
+
+
+def plain_z(rows, c, v, factors, mode, R, chunk: int):
+    """The plain Z of sorted elements, summed over ``chunk``-element
+    slices (``ref.kron_segsum_ref`` on each, added up in float64), so it
+    fits beside the operands and one f32 ``index_add_`` over a hub row's
+    millions of terms does not carry its own rounding into the
+    comparison."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    E = int(rows.shape[0])
+    want = None
+    for lo in range(0, E, chunk):
+        sl = slice(lo, min(E, lo + chunk))
+        a, b = ops._split_ab(c[sl], v[sl], factors, mode)
+        part = ref.kron_segsum_ref(rows[sl], a, b, R)
+        del a, b
+        if want is None:
+            want = torch.zeros(part.shape, dtype=torch.float64,
+                               device=part.device)
+        want += part
+        del part
+    return want.float()
+
+
+def four_mode_single_checks(t4, factors) -> dict:
+    """The kernels at the four-mode single-process shapes (every mode's
+    elements sorted by its rows, K̂ = 1000): the gather-form
+    ``kron_segsum`` (N >= 4: the leading factors folded into ``a`` on the
+    card) against its chunked plain version, rerun bitwise, timed against
+    its bound, the chunk walk and the fix-up timed apart (the fix-up adds a
+    row's chunk partials in series: mode 0's hub row); ``oracle_pair`` on
+    that Z as the vector Lanczos calls it (one half per call, s = 1)
+    against its plain version and timed beside ``torch.matmul``."""
+    import torch
+    from repro_torch.convert import device_coords
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.oracle_fused import oracle_pair
+
+    dev = factors[0].device
+    coords, values = device_coords(t4, dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"kron_segsum": [], "oracle_pair": [], "err": {}}
+    errs = {"kron_segsum": 0.0, "oracle_pair": 0.0}
+    for mode in range(t4.ndim):
+        rows, c, v = sorted_elements(coords, values, mode)
+        R, E = t4.shape[mode], int(rows.shape[0])
+        Ka, Kb = ops.split_kron_dims([f.shape[1] for f in factors], mode)
+        hub = int(torch.bincount(rows.long(), minlength=R).max())
+
+        def gather():
+            return ops.penultimate_sorted(c, v, rows, factors, mode, R)
+
+        got, again = gather(), gather()
+        errs["kron_segsum"] = max(errs["kron_segsum"], check(
+            f"four-mode mode {mode}: gather kron_segsum E={E} rows={R} "
+            f"K={Ka * Kb} (Ka={Ka}, Kb={Kb}), largest row {hub} elements",
+            got, plain_z(rows, c, v, factors, mode, R, PLAIN_CHUNK), again))
+        del again
+        torch.cuda.empty_cache()
+        ms = cuda_ms(gather, reps=3)
+        walk = device_ms(gather, reps=3, match="chunk_kernel")
+        fixup = device_ms(gather, reps=3, match="fixup_kernel")
+        bound, by = gather_bound_ms(E, t4.ndim, Ka, Kb, R,
+                                    factor_rows_read(factors, mode))
+        log(f"four-mode kron_segsum mode {mode}: gather ms={ms:.4f} (the "
+            f"fold of a on the card included) chunk walk device_ms="
+            f"{walk:.4f} fix-up device_ms={fixup:.4f} (largest row {hub} "
+            f"elements, {-(-hub // 1024)} chunks of partials) bound_ms="
+            f"{bound:.4f} ({by}); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        out["kron_segsum"].append(dict(ms=ms, walk_ms=walk, fixup_ms=fixup,
+                                       bound=bound, by=by, hub=hub))
+        del rows, c, v
+
+        Z, K = got, got.shape[1]
+        x = torch.randn((K,), device=dev, generator=g)
+        y = torch.randn((R,), device=dev, generator=g)
+        wx, wy = ref.oracle_pair_ref(Z, x, y)
+        for name, fn, w in (("Z@x", lambda: oracle_pair(Z, x, None)[0], wx),
+                            ("Z^T@y", lambda: oracle_pair(Z, None, y)[1],
+                             wy)):
+            errs["oracle_pair"] = max(errs["oracle_pair"], check(
+                f"four-mode mode {mode}: oracle_pair {name} Z={R}x{K} s=1",
+                fn(), w, fn()))
+
+        def pair():
+            oracle_pair(Z, x, None)
+            oracle_pair(Z, None, y)
+
+        def lib_pair():
+            torch.matmul(Z, x)
+            torch.matmul(y, Z)
+
+        ms = cuda_ms(pair, reps=20, warmup=2) / 2
+        dev_ms = device_ms(pair, reps=20, match="oracle_kernel",
+                           per_call=2) / 2
+        lib = cuda_ms(lib_pair, reps=20, warmup=2) / 2
+        lib_dev = device_ms(lib_pair, reps=20) / 2
+        plain = cuda_ms(lambda: (ref.oracle_pair_ref(Z, x, None),
+                                 ref.oracle_pair_ref(Z, None, y)),
+                        reps=20, warmup=2) / 2
+        bound, by = oracle_half_bound_ms(R, K, 1)
+        log(f"four-mode oracle_pair mode {mode}: Z={R}x{K} s=1 one half per "
+            f"call ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
+            f"torch.matmul ms={lib:.4f} device_ms={lib_dev:.4f} "
+            f"bound_ms={bound:.4f} ({by})")
+        out["oracle_pair"].append(dict(ms=ms, device_ms=dev_ms, plain=plain,
+                                       lib=lib, lib_device_ms=lib_dev,
+                                       bound=bound, by=by))
+        del Z, got, x, y, wx, wy
+        torch.cuda.empty_cache()
+    out["err"] = errs
+    return out
+
+
+def four_mode_dist_checks(ex, pl, factors) -> dict:
+    """The kernels at the four-mode distributed shapes, on the arrays the
+    steps ran over (the executor's resident upload of ``pl``, every mode's
+    stacked partition): ``kron_segsum_oracle``'s gather form with the
+    ``fused_block8`` panel against its chunked plain version (Z and
+    Z @ X), rerun bitwise, timed against its bound; the stacked
+    ``oracle_pair`` (P ranks, s = 8) on that Z against its plain version,
+    rerun bitwise, timed beside one ``torch.bmm``."""
+    import torch
+    from repro_torch.core.lanczos import block_start_panel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.oracle_fused import oracle_pair
+    from repro_torch.random import make_key
+
+    up = ex._uploads[pl]
+    dev = factors[0].device
+    g = torch.Generator(device=dev).manual_seed(29)
+    out = {"kron_segsum_oracle": [], "stacked": []}
+    errs = {"kron_segsum_oracle": 0.0, "oracle_pair": 0.0}
+    for mp, arrs in zip(pl.parts, up.zarrs):
+        c, v, rows = arrs["coords"], arrs["values"], arrs["rows"]
+        mode, P, R_pad = mp.mode, mp.P, mp.R_pad
+        R, E = P * R_pad, int(rows.shape[0])
+        Ka, Kb = ops.split_kron_dims([f.shape[1] for f in factors], mode)
+        X = block_start_panel(make_key(0), Ka * Kb, DIST_BLOCK, dev)
+
+        def gather():
+            return ops.penultimate_sorted_oracle(c, v, rows, factors, mode,
+                                                 R, X)
+
+        got, again = gather(), gather()
+        want = plain_z(rows, c, v, factors, mode, R, PLAIN_CHUNK)
+        errs["kron_segsum_oracle"] = max(
+            errs["kron_segsum_oracle"],
+            check(f"four-mode dist mode {mode}: kron_segsum_oracle Z "
+                  f"E={E} (P={P} x E_pad {mp.E_pad}) rows={R} "
+                  f"K={Ka * Kb} s={DIST_BLOCK}", got[0], want, again[0]),
+            check(f"four-mode dist mode {mode}: kron_segsum_oracle ZX",
+                  got[1], want @ X, again[1]))
+        del want, again
+        torch.cuda.empty_cache()
+        ms = cuda_ms(gather, reps=3)
+        nonempty = int(torch.unique_consecutive(rows).numel())
+        bound, by = fused_gather_bound_ms(E, len(factors), Ka, Kb, R,
+                                          factor_rows_read(factors, mode),
+                                          nonempty, DIST_BLOCK)
+        log(f"four-mode kron_segsum_oracle mode {mode}: gather ms={ms:.4f} "
+            f"bound_ms={bound:.4f} ({by})")
+        out["kron_segsum_oracle"].append(dict(ms=ms, bound=bound, by=by))
+
+        Z, K = got[0], got[0].shape[1]
+        y = torch.randn((P, R_pad, DIST_BLOCK), device=dev, generator=g)
+        errs["oracle_pair"] = max(errs["oracle_pair"], check(
+            f"four-mode stacked oracle_pair Z^T@y mode {mode} P={P} "
+            f"R_pad={R_pad} K={K} s={DIST_BLOCK}",
+            oracle_pair(Z, None, y, P)[1], ref.oracle_pair_ref(Z, None, y,
+                                                               P)[1],
+            oracle_pair(Z, None, y, P)[1]))
+        st_ms = cuda_ms(lambda: oracle_pair(Z, None, y, P), reps=20,
+                        warmup=2)
+        st_dev = device_ms(lambda: oracle_pair(Z, None, y, P), reps=20,
+                           match="oracle_kernel")
+        lib = cuda_ms(lambda: torch.bmm(Z.view(P, R_pad, K).transpose(1, 2),
+                                        y), reps=20, warmup=2)
+        bound, by = oracle_half_bound_ms(R, K, DIST_BLOCK)
+        bound += 1e3 * 4 * (P - 1) * K * DIST_BLOCK / HBM_BYTES_PER_S
+        log(f"four-mode stacked oracle_pair mode {mode}: Z^T@Y ms="
+            f"{st_ms:.4f} device_ms={st_dev:.4f} one torch.bmm ms={lib:.4f}"
+            f" bound_ms={bound:.4f} ({by})")
+        out["stacked"].append(dict(ms=st_ms, device_ms=st_dev, lib=lib,
+                                   bound=bound, by=by))
+        del Z, got, y
+        torch.cuda.empty_cache()
+    out["err"] = errs
+    return out
+
+
+def captured_pair(t, pl, path: str, label: str, core=CORE, uploads=None):
+    """``dist_run`` twice on the shared executor: the first run captures
+    every mode step (over a new plan's arrays) and uploads ``uploads``
+    arrays; the rerun captures, compiles and uploads nothing, replays every
+    step and gives the first run's bits. Returns (dec, stats, record) of
+    the first run with the rerun's record as ``record["rerun"]``."""
+    dec, st, rec = dist_run(t, pl, path, label, core=core)
+    if st.step_captures != len(core) or (uploads is not None
+                                         and st.uploads != uploads):
+        raise AssertionError(f"{label}: {st.step_captures} captures, "
+                             f"{st.uploads} uploads (want {len(core)}, "
+                             f"{uploads})")
+    dec2, st2, rec2 = dist_run(t, pl, path, f"{label} rerun", core=core)
+    if (st2.step_captures, st2.step_compilations, st2.uploads) != (0, 0, 0) \
+            or st2.graph_replays != len(core) * DIST_INVOCATIONS \
+            or held_to_stacked(t, (dec2, st2), (dec, st), f"{label} rerun",
+                               True) != "bitwise":
+        raise AssertionError(
+            f"{label} rerun: {st2.step_captures} captures, "
+            f"{st2.step_compilations} compilations, {st2.uploads} uploads, "
+            f"{st2.graph_replays} replays; fits {st2.fits} against "
+            f"{st.fits}")
+    log(f"{label} rerun: 0 captures, 0 compilations, 0 uploads, "
+        f"{st2.graph_replays} replays, bitwise the first run; steady sweep "
+        f"{rec2['steady_s']:.4f} s replayed")
+    rec["rerun"] = rec2
+    return dec, st, rec
+
+
+def phase_four_mode_small() -> None:
+    """The paper suite's enron-s mirror at core 10^4 on the card against
+    the port's CPU path: single process and P = 4 on both backends."""
+    from repro_torch.core.hooi import hooi
+    from repro_torch.data.tensors import paper_suite
+    from repro_torch.distributed.dist_hooi import dist_hooi
+
+    t = paper_suite(1.0, 0)["enron-s"]
+    kw = dict(n_invocations=3, seed=2, use_fused_oracle=True)
+    worst = 0.0
+    _, fg = hooi(t, CORE4, device=DEVICE, **kw)
+    _, fc = hooi(t, CORE4, device="cpu", **kw)
+    runs = [("hooi", fg, fc)]
+    for path in ("liteopt", "baseline"):
+        dkw = dict(kw, path=path, lanczos_block=DIST_BLOCK, fused_zbuild=True)
+        _, sg = dist_hooi(t, CORE4, DIST_P, device=DEVICE, **dkw)
+        _, sc = dist_hooi(t, CORE4, DIST_P, device="cpu", **dkw)
+        runs.append((f"dist_hooi {path}", sg.fits, sc.fits))
+    for label, g, c in runs:
+        check_fits(g, f"enron-s {label}")
+        diff = float(np.max(np.abs(np.subtract(g, c))))
+        worst = max(worst, diff)
+        log(f"enron-s mirror {t.shape} nnz {t.nnz} core {CORE4} {label} "
+            f"card against CPU: fits {g} against {c}, max diff {diff:.2e} "
+            f"(tolerance 1e-4)")
+        if not diff <= 1e-4:
+            raise AssertionError(f"enron-s {label}: card and CPU fits "
+                                 f"differ by {diff}")
+
+
+def phase_four_mode() -> dict:
+    """HOOI over four modes at FROSTT enron's size (nothing cut), core
+    10^4: single-process ``hooi`` for one invocation, the kernels at its
+    shapes; a Lite plan for P = 4 and ``dist_hooi`` with ``fused_block8``
+    on boundary and psum, captured, each rerun on the cached plan (0
+    captures, 0 uploads, bitwise); the kernels at the distributed shapes;
+    then the enron-s mirror on the card against the CPU. Runs on a fresh
+    shared executor, nothing of the nell-2 phases resident."""
+    import torch
+    from repro_torch.core import hooi
+    from repro_torch.core.plan import plan
+    from repro_torch.data.tensors import SUITE_SPECS, synth_tensor
+    from repro_torch.distributed.dist_hooi import shared_executor
+    from repro_torch.random import make_key
+
+    spec = next(s for s in SUITE_SPECS if s.name == "enron-s")
+    t0 = time.perf_counter()
+    t4 = synth_tensor(ENRON_SHAPE, ENRON_NNZ, alphas=spec.alphas,
+                      hub_fraction=spec.hub_fraction,
+                      hub_modes=spec.hub_modes, seed=0)
+    gen_s = time.perf_counter() - t0
+    hub = int(t4.slice_sizes(0).max())
+    log(f"four-mode tensor: FROSTT enron's shape {t4.shape}, {ENRON_NNZ} "
+        f"drawn under {spec.name}'s skew alphas={spec.alphas} and hub "
+        f"(fraction {spec.hub_fraction} on modes {spec.hub_modes}), seed "
+        f"0: {t4.nnz} unique after deduplication, generated in {gen_s:.1f} "
+        f"s; mode 0's largest slice {hub} elements; core {CORE4}, K̂ = "
+        f"{int(np.prod(CORE4[1:]))}")
+    out = {"nnz": t4.nnz, "gen_s": gen_s, "hub": hub}
+    out["single"] = run_single(t4, "four-mode single-process path", 1,
+                               core=CORE4)
+    dev = torch.device(DEVICE)
+    factors = hooi.random_factors(t4.shape, CORE4, make_key(0), dev)
+    out["single_checks"] = four_mode_single_checks(t4, factors)
+
+    t0 = time.perf_counter()
+    pl = plan(t4, "lite", DIST_P, core_dims=CORE4, path="auto")
+    out["plan_build_s"] = time.perf_counter() - t0
+    log(f"four-mode plan: lite, P={DIST_P}, built on the host in "
+        f"{out['plan_build_s']:.1f} s; E_pad={[mp.E_pad for mp in pl.parts]} "
+        f"R_pad={[mp.R_pad for mp in pl.parts]} "
+        f"Lp={[mp.Lp for mp in pl.parts]} "
+        f"S_pad={[mp.S_pad for mp in pl.parts]}")
+    out["runs"] = {}
+    for path, uploads in (("liteopt", 10 * len(CORE4) + 2), ("baseline", 0)):
+        out["runs"][path] = captured_pair(
+            t4, pl, path, f"four-mode {path}", core=CORE4,
+            uploads=uploads)[2]
+    out["dist_checks"] = four_mode_dist_checks(shared_executor(DIST_P), pl,
+                                               factors)
+    del pl, factors
+    phase_four_mode_small()
+    return out
+
+
+def scheme_row(t, pl, label: str, wall: float) -> dict:
+    """A plan's row of the scheme table: host seconds, padded shapes per
+    mode, elements held, ``SchemeMetrics``, the modeled bytes a sweep
+    moves by kind (the plan's comm model: psum's and boundary's
+    collectives, the factor rows) and modeled seconds; logged."""
+    m, N = pl.metrics, len(pl.parts)
+    rec = {
+        "build_s": pl.build_s, "wall_s": wall,
+        "E_pad": [mp.E_pad for mp in pl.parts],
+        "R_pad": [mp.R_pad for mp in pl.parts],
+        "Lp": [mp.Lp for mp in pl.parts],
+        "S_pad": [mp.S_pad for mp in pl.parts],
+        "elements_held": [int(mp.e_per_rank.sum()) for mp in pl.parts],
+        "metrics": {k: int(getattr(m, k)) for k in (
+            "ttm_flops_max", "svd_flops_max", "fm_volume", "svd_volume")},
+        "bytes_per_sweep": {
+            "psum": sum(float(pl.comm(n)["baseline_bytes"])
+                        for n in range(N)),
+            "boundary": sum(float(pl.comm(n)["liteopt_bytes"])
+                            for n in range(N)),
+            "factors": 4.0 * m.fm_volume},
+        "modeled_s": pl.cost.total_s, "runs": {}}
+    log(f"{label} {pl.name}: plan built on the host in {pl.build_s:.2f} s "
+        f"({wall:.2f} s wall), uni={pl.scheme.uni}; E_pad={rec['E_pad']} "
+        f"R_pad={rec['R_pad']} Lp={rec['Lp']} S_pad={rec['S_pad']} "
+        f"elements held {rec['elements_held']} of {t.nnz}; metrics "
+        f"{rec['metrics']}; bytes per sweep {rec['bytes_per_sweep']}; "
+        f"modeled {pl.cost.total_s:.6f} s")
+    return rec
+
+
+def phase_schemes(t, names, label: str, lite: dict | None = None,
+                  lite_plan=None) -> dict:
+    """The paper's schemes on ``t``: each of ``names`` planned for P = 4
+    (costed for ``path="auto"``, outside the plan cache, so a plan and its
+    uploads go when the scheme is done) and run with ``fused_block8`` on
+    boundary and psum through the shared executor's captured steps, each
+    rerun bitwise with 0 captures and 0 uploads. Every run is held to the
+    Lite runs of the same tensor and seed (``lite``: by path, from an
+    earlier phase on ``lite_plan``; else Lite is the first of ``names``):
+    fits within 1e-4
+    of the same backend's, the final core's energy share within 2e-6
+    relative of the nearer of Lite's two (psum and boundary). Per scheme:
+    the plan's host seconds, the steady seconds per sweep (replayed), the
+    padded shapes per mode, ``SchemeMetrics``, the bytes a sweep moves by
+    kind (the plan's comm model: psum's and boundary's collectives, the
+    factor rows) and peak memory; then what ``auto`` picks from the plans'
+    modeled seconds, without a plan built twice. One ``schemes`` JSON line."""
+    import torch
+    from repro_torch.core.plan import AUTO_CANDIDATES, plan
+
+    N = len(CORE)
+    rows, costs = {}, {}
+    if lite_plan is not None:  # its runs are an earlier phase's (first runs)
+        rows["lite"] = scheme_row(t, lite_plan, label, lite_plan.build_s)
+        rows["lite"]["runs"] = {p: {"first_steady_s": r["steady_s"],
+                                    "peak_gib": r["peak_bytes"] / 2**30,
+                                    "fit": r["stats"].fits[-1]}
+                                for p, r in lite.items()}
+        costs["lite"] = lite_plan.cost.total_s
+    for name in names:
+        t0 = time.perf_counter()
+        pl = plan(t, name, DIST_P, core_dims=CORE, path="auto",
+                  use_cache=False)
+        rec = scheme_row(t, pl, label, time.perf_counter() - t0)
+        costs[name] = pl.cost.total_s
+        for i, path in enumerate(("liteopt", "baseline")):
+            dec, st, run = captured_pair(
+                t, pl, path, f"{label} {name} {path}",
+                uploads=10 * N + 2 if i == 0 else 0)
+            if lite is None:
+                lite = {}
+            if name == "lite" and path not in lite:
+                lite[path] = run
+            want = lite[path]
+            gap = float(np.max(np.abs(np.subtract(st.fits,
+                                                  want["stats"].fits))))
+            # the core's energy against each of Lite's runs: they are two
+            # f32 roundings of one decomposition (their own gap, psum
+            # against boundary, reached 2.04e-6 relative at 1M draws), so
+            # the bar holds against the nearer one
+            rels = {p: abs(run["core_share"] - r["core_share"])
+                    / r["core_share"] for p, r in lite.items()}
+            rel, near = rels[path], min(rels.values())
+            log(f"{label} {name} {path} against Lite: max fit gap "
+                f"{gap:.3e} (tolerance 1e-4), core's energy share "
+                f"{run['core_share']!r} against {want['core_share']!r} "
+                f"(relative {rel:.3e}; against Lite's runs {rels}, the "
+                f"nearer {near:.3e}, tolerance 2e-6)")
+            if not (gap <= 1e-4 and near <= 2e-6):
+                raise AssertionError(f"{label} {name} {path}: fits or core "
+                                     f"energy off Lite's")
+            rec["runs"][path] = {
+                "steady_s": run["rerun"]["steady_s"],
+                "first_steady_s": run["steady_s"],
+                "setup_s": st.setup_s,
+                "peak_gib": run["peak_bytes"] / 2**30,
+                "fit": st.fits[-1], "fit_gap": gap, "core_rel": rel,
+                "core_rel_nearer": near}
+        rows[name] = rec
+        del pl, dec, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    pick = min((c for c in AUTO_CANDIDATES if c in costs),
+               key=lambda c: costs[c])
+    log(f"{label}: auto would pick {pick} from the modeled seconds "
+        f"{ {c: costs[c] for c in AUTO_CANDIDATES if c in costs} }")
+    print(f"schemes {label} " + json.dumps(
+        {"nnz": t.nnz, "shape": list(t.shape), "auto_pick": pick,
+         "schemes": rows}), flush=True)
+    return {"rows": rows, "auto": pick, "lite": lite}
+
+
+def four_mode_entry(four: dict, name: str) -> dict:
+    """The kernel's numbers at the four-mode shapes (K̂ = 1000) for the
+    ``kernels`` line: ms, bound and launches per sweep on each path,
+    ``torch.matmul``'s (``torch.bmm``'s stacked) time for an oracle half."""
+    def avg(rows, key):
+        return float(np.mean([r[key] for r in rows]))
+
+    def worst(rows):
+        return rows[int(np.argmax([r["bound"] for r in rows]))]["by"]
+
+    sweeps = len(four["runs"]["liteopt"]["stats"].fits)
+    out = {"launches_per_sweep": {
+        "hooi": four["single"]["launches"][name]
+        / four["single"]["invocations"],
+        **{f"dist_{p}": four["runs"][p]["launches"][name] / sweeps
+           for p in ("liteopt", "baseline")}}}
+    single, dist = four["single_checks"], four["dist_checks"]
+    if name == "kron_segsum":
+        rows = single["kron_segsum"]
+        out.update(ms=avg(rows, "ms"), bound_ms=avg(rows, "bound"),
+                   bound_by=worst(rows), walk_ms=avg(rows, "walk_ms"),
+                   fixup_ms=[r["fixup_ms"] for r in rows],
+                   largest_row=[r["hub"] for r in rows])
+    elif name == "kron_segsum_oracle":
+        rows = dist["kron_segsum_oracle"]
+        out.update(ms=avg(rows, "ms"), bound_ms=avg(rows, "bound"),
+                   bound_by=worst(rows), s=DIST_BLOCK)
+    else:
+        rows, st = single["oracle_pair"], dist["stacked"]
+        out.update(ms=avg(rows, "ms"), device_ms=avg(rows, "device_ms"),
+                   plain_ms=avg(rows, "plain"), bound_ms=avg(rows, "bound"),
+                   bound_by=worst(rows), library_ms=avg(rows, "lib"),
+                   library_device_ms=avg(rows, "lib_device_ms"),
+                   stacked={"s": DIST_BLOCK, "ms": avg(st, "ms"),
+                            "device_ms": avg(st, "device_ms"),
+                            "bound_ms": avg(st, "bound"),
+                            "library_ms": avg(st, "lib")})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2771,6 +3281,7 @@ def main() -> int:
     from repro_torch.core.plan import plan_cache_clear
     from repro_torch.device import full_precision_matmul
     from repro_torch.distributed import executor
+    from repro_torch.envknobs import snapshot
     from repro_torch.kernels import build
     from repro_torch.random import make_key
 
@@ -2779,6 +3290,7 @@ def main() -> int:
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(smi, flush=True)
+    log(f"knobs (REPRO_* as resolved): {json.dumps(snapshot())}")
     full_precision_matmul()
 
     t0 = time.perf_counter()
@@ -2789,6 +3301,24 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+    def release(before: str) -> None:
+        # nothing of the phases before stays resident: their plans (held
+        # by the caller and the plan cache), uploads and graphs, and the
+        # shared executor's refine snapshots
+        plan_cache_clear()
+        executor._SHARED.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"resident before {before}: "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+
+    # four modes first: the profiler times its chunk walk and fix-up apart,
+    # and late in the run (after many graph replays) its sessions recorded
+    # none of those kernels
+    four = phase_four_mode()
+    release("the nell-2 phases")
 
     t0 = time.perf_counter()
     t = synth_tensor(MAIN_SHAPE, MAIN_NNZ, alphas=MAIN_ALPHAS, seed=0)
@@ -2801,6 +3331,9 @@ def main() -> int:
     errs = phase_kernel_checks(coords, values, factors, t.shape)
     errs["kron_segsum_oracle"] = phase_fused_checks(coords, values, factors,
                                                     t.shape)
+    for checks in (four["single_checks"], four["dist_checks"]):
+        for name, err in checks["err"].items():
+            errs[name] = max(errs[name], err)
     del coords, values
     torch.cuda.empty_cache()
 
@@ -2817,22 +3350,12 @@ def main() -> int:
     phase_capture_bitwise(t, dist["plan"])
     calibration = phase_reuse_profile_and_calibration(t, dist["plan"])
     stoch = phase_stochastic(t, dist["plan"], dist["factors"], dist["fit"])
-    from repro_torch.distributed.dist_hooi import shared_executor
-
-    mesh_default = phase_mesh(t, dist["plan"], "default-pad", bitwise=False,
-                              stacked_ex=shared_executor(DIST_P))
-
-    def release(before: str) -> None:
-        # nothing of the phases before stays resident: their plans (held
-        # by the caller and the plan cache), uploads and graphs, and the
-        # shared executor's refine snapshots
-        plan_cache_clear()
-        executor._SHARED.clear()
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"resident before {before}: "
-            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
-            f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+    log("CUT: the mesh rows run on the geometric-pad reselect plan only, "
+        "not on this default-pad plan too (time)")
+    schemes_full = phase_schemes(
+        t, ("coarse", "medium"), "nell-2 size",
+        lite={p: dist["runs"][p] for p in ("liteopt", "baseline")},
+        lite_plan=dist["plan"])
 
     del dist["factors"], dist["plan"]
     release("the scheduler ladder")
@@ -2845,6 +3368,15 @@ def main() -> int:
     pool = phase_pool(ladder)
     mesh_geo = phase_mesh(pool.pop("snap"), pool.pop("plan"),
                           "geometric-pad reselect", bitwise=True)
+    release("the scheme comparison at medium size")
+    t0 = time.perf_counter()
+    t1 = synth_tensor(MAIN_SHAPE, MEDIUM_NNZ, alphas=MAIN_ALPHAS, seed=0)
+    log(f"medium tensor: nell-2's shape, {MEDIUM_NNZ} drawn under nell2-s's "
+        f"skew, seed 0: {t1.nnz} unique, generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    schemes_medium = phase_schemes(t1, ("lite", "coarse", "medium",
+                                        "hypergraph"), "medium size")
+    del t1
     release("the single-process phases")
 
     main = phase_main_path(t)
@@ -2872,7 +3404,17 @@ def main() -> int:
         + "; scheduler rungs (run_s) "
         + ", ".join(f"{r['decision']} {r['run_s']:.4f}"
                     for r in ladder["rungs"])
-        + f"; precision='auto' after calibration: {calibration['auto']}")
+        + f"; precision='auto' after calibration: {calibration['auto']}"
+        + "; schemes (replayed boundary, psum) "
+        + ", ".join(f"{label} {name} {r['runs']['liteopt']['steady_s']:.4f}/"
+                    f"{r['runs']['baseline']['steady_s']:.4f}"
+                    for label, sch in (("nell-2", schemes_full),
+                                       ("1M", schemes_medium))
+                    for name, r in sch["rows"].items()
+                    if "steady_s" in r["runs"]["liteopt"])
+        + f"; four-mode hooi {four['single']['steady_s']:.4f}, dist "
+        + ", ".join(f"{p} {four['runs'][p]['rerun']['steady_s']:.4f}"
+                    for p in ("liteopt", "baseline")))
     dist_sweeps = len(run["stats"].fits)
     by_path = {
         name: {"hooi": main["launches"][name],
@@ -2888,10 +3430,11 @@ def main() -> int:
                "pool_router": pool["launches"][name],
                "hooi_completion": objectives["completion"]["launches"][name],
                "hooi_nn": objectives["nn"]["launches"][name],
-               **{f"mesh {plan} {label}": rec["launches"][name]
-                  for plan, mesh in (("default-pad", mesh_default),
-                                     ("geometric-pad", mesh_geo))
-                  for label, rec in mesh["runs"].items()}}
+               **{f"mesh geometric-pad {label}": rec["launches"][name]
+                  for label, rec in mesh_geo["runs"].items()},
+               "four_mode_hooi": four["single"]["launches"][name],
+               **{f"four_mode_dist_{path}": four["runs"][path]["launches"][
+                   name] for path in ("liteopt", "baseline")}}
         for name in ("kron_segsum", "kron_segsum_oracle", "oracle_pair")}
     log(f"launches by path: {by_path}; executions on the card in replayed "
         f"runs (profiler): dist {dist_replayed['executions']}, refine "
@@ -2935,10 +3478,8 @@ def main() -> int:
             # per replayed sweep of a captured mesh's rows: the launches
             # its captures recorded, and the core's
             "mesh_replayed_per_sweep": {
-                f"{plan} {label}": rec["executions_per_sweep"][name]
-                for plan, mesh in (("default-pad", mesh_default),
-                                   ("geometric-pad", mesh_geo))
-                for label, rec in mesh["captured_runs"].items()},
+                f"geometric-pad {label}": rec["executions_per_sweep"][name]
+                for label, rec in mesh_geo["captured_runs"].items()},
             "max_abs_err": errs[name], "ms": mean(name, "ms"),
             "plain_ms": mean(name, "plain"), "bound_ms": mean(name, "bound"),
             "bound_by": bound_by(name),
@@ -2972,6 +3513,7 @@ def main() -> int:
                 form="gather", row_form_ms=mean(name, "row_ms"),
                 row_form_bound_ms=mean(name, "row_bound"),
                 split_ab_plus_row_form_ms=mean(name, "split_row_ms"))
+        entry["four_mode"] = four_mode_entry(four, name)
         if name == "kron_segsum_oracle":
             entry["kron_segsum_plus_matmul_ms"] = mean(name, "two")
             entry["range_finder_panel"] = dict(

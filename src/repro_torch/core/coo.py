@@ -119,6 +119,9 @@ class SparseTensor:
         coords = np.stack(np.unravel_index(uniq, self.shape), axis=1)
         return SparseTensor(coords, vals, self.shape)
 
+    def norm(self) -> float:
+        return float(np.linalg.norm(self.values))
+
     def fingerprint(self) -> str:
         """Content hash of (shape, coords, values), the reference's.
 

@@ -19,7 +19,7 @@ import numpy as np
 
 from repro_torch.core.coo import SparseTensor
 
-__all__ = ["synth_tensor", "SuiteSpec", "SUITE_SPECS"]
+__all__ = ["synth_tensor", "SuiteSpec", "SUITE_SPECS", "paper_suite"]
 
 
 def _zipf_coords(rng, L: int, n: int, alpha: float) -> np.ndarray:
@@ -100,3 +100,18 @@ SUITE_SPECS: tuple[SuiteSpec, ...] = (
     SuiteSpec("reddit-s", (8200, 1760, 8100), 230_000, (1.3, 0.9, 1.3),
               hub_fraction=0.04, hub_modes=(1,), mirror_of="reddit"),
 )
+
+
+def paper_suite(scale: float = 1.0, seed: int = 0) -> dict[str, SparseTensor]:
+    """Instantiate the synthetic suite; ``scale`` multiplies nnz."""
+    out = {}
+    for i, s in enumerate(SUITE_SPECS):
+        out[s.name] = synth_tensor(
+            s.shape,
+            max(1000, int(s.nnz * scale)),
+            s.alphas,
+            hub_fraction=s.hub_fraction,
+            hub_modes=s.hub_modes,
+            seed=seed + i,
+        )
+    return out

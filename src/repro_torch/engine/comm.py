@@ -269,6 +269,36 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(tuple(idx.shape) + tuple(src.shape[1:]))
 
 
+def add_slots(flat: torch.Tensor, base: torch.Tensor, dst: torch.Tensor,
+              vals: torch.Tensor, Lp: int, rounds: int) -> None:
+    """``flat[base[r] + dst[r, j]] += vals[r, j]`` for every rank row r and
+    slot column j, each destination row's adds in slot (column) order, as
+    a loop over the columns would run them; ``dst == Lp`` is no slot (its
+    rank's dump row). A destination row takes at most one slot from each
+    other rank, so ``rounds`` = P - 1 rounds cover it: round k adds every
+    row's k-th slot at once, in a few launches whatever the columns (a
+    uni-policy plan has thousands)."""
+    R, B = dst.shape
+    if B == 0:
+        return
+    order = torch.argsort(dst, dim=1, stable=True)
+    run = torch.gather(dst, 1, order)
+    start = torch.ones_like(run, dtype=torch.bool)
+    start[:, 1:] = run[:, 1:] != run[:, :-1]
+    pos = torch.arange(B, device=dst.device).expand(R, B)
+    first = torch.cummax(torch.where(start, pos, 0), dim=1).values
+    occ = torch.empty_like(order).scatter_(1, order, pos - first)
+    tail = tuple(vals.shape[2:])
+    for k in range(rounds):
+        take = (occ == k) & (dst < Lp)
+        idx = (base[:, None] + torch.where(take, dst, Lp)).reshape(-1)
+        add = torch.where(take.reshape((R * B,) + (1,) * len(tail)),
+                          vals.reshape((R * B,) + tail),
+                          torch.zeros((), dtype=vals.dtype,
+                                      device=vals.device))
+        flat[idx] = flat[idx] + add
+
+
 def _psum_space(ms: dict, maps: dict, zmv, zrmv) -> OracleSpace:
     P, Lp = ms["P"], ms["Lp"]
     gid_src, u_src = maps["gid_src"], maps["u_src"]
@@ -306,13 +336,10 @@ def _boundary_space(ms: dict, maps: dict, zmv, zrmv) -> OracleSpace:
                             device=local.device)
         shard[:, :Lp] = gather_rows(local, own_src)
         flat = shard.view((P * (Lp + 1),) + tail)
-        # boundary rows computed elsewhere add into their owner's row, one
-        # slot column at a time: within a column each rank adds to its own
-        # row (the sentinel Lp lands in a dump row), so no two writes of a
-        # column collide and the sums run in slot order
-        for j in range(bnd_src.shape[1]):
-            dst = rank_base + bnd_dst[:, j]
-            flat[dst] = flat[dst] + gather_rows(local, bnd_src[:, j])
+        # boundary rows computed elsewhere add into their owner's row in
+        # slot order (the sentinel Lp lands in a dump row)
+        add_slots(flat, rank_base, bnd_dst, gather_rows(local, bnd_src), Lp,
+                  P - 1)
         return shard[:, :Lp]
 
     def rmatvec(u_shard):  # (P, Lp[, s]) -> (K_hat[, s])
@@ -356,10 +383,9 @@ def make_mesh_boundary_space(ms: dict, gmaps: list, mesh, prods
             shard[:, :Lp] = gather_rows(local, m["own_src"])
             flat = shard.view((per * (Lp + 1),) + tail)
             bnd = gather_rows(torch.cat(inc[g]), m["mv_idx"])
-            # the stacked space's slot-column loop over g's owners
-            for j in range(bnd.shape[1]):
-                dst = rank_base[g] + m["bnd_dst"][:, j]
-                flat[dst] = flat[dst] + bnd[:, j]
+            # the stacked space's adds over g's owners, in slot order
+            add_slots(flat, rank_base[g], m["bnd_dst"], bnd, Lp,
+                      G * per - 1)
             return shard[:, :Lp]
 
         return GroupTensor.build(mesh, place)

@@ -12,7 +12,7 @@ import os
 
 __all__ = ["PRECISIONS", "OBJECTIVES", "WARM_STARTS", "KNOBS", "env_flag",
            "fused_zbuild", "precision", "lanczos_block", "objective",
-           "warm_start", "sample_fraction"]
+           "warm_start", "sample_fraction", "snapshot"]
 
 PRECISIONS = ("f32", "bf16")
 OBJECTIVES = ("tucker", "completion", "nn")
@@ -106,3 +106,8 @@ KNOBS = {
     "REPRO_WARM_START": warm_start,
     "REPRO_SAMPLE_FRACTION": sample_fraction,
 }
+
+
+def snapshot() -> dict[str, object]:
+    """Resolved value of every knob the port reads: a run's provenance."""
+    return {name: parse() for name, parse in KNOBS.items()}

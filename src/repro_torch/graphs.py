@@ -53,7 +53,9 @@ Every step of one ``CaptureHome`` shares its memory pool, so replays of
 different steps must not overlap on the card: they are serialized under the
 home's lock on the host and chained on the card through ``CaptureHome.last``,
 which each replay (or capture) waits for and then records, whatever stream
-the caller runs on.
+the caller runs on. A pool serves captures while a graph captured into it
+lives; once every one has died (the plans that held them dropped), the next
+capture takes a fresh pool (``CaptureHome.pool_for_capture``).
 
 A kernel wrapper counts only the launches it makes; a launch recorded under
 capture runs at each replay, and the wrapper does not count it. A buffer a
@@ -67,6 +69,7 @@ import collections
 import contextlib
 import dataclasses
 import threading
+import weakref
 from typing import Callable
 
 import torch
@@ -166,8 +169,23 @@ class CaptureHome:
         ones may still be marked as capturing (the allocator keeps routing
         the stream's allocations into the pool), so they are left behind;
         graphs captured into the old pool keep it alive and stay valid."""
-        self.pool = torch.cuda.graph_pool_handle()
+        self.new_pool()
         self.stream = torch.cuda.Stream(self.device)
+
+    def new_pool(self) -> None:
+        # the graphs captured into ``pool`` that are alive: a pool lives as
+        # long as one of them (PyTorch counts its uses by live graphs, and
+        # one that has dropped to none cannot be captured into again)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = weakref.WeakSet()
+
+    def pool_for_capture(self) -> tuple:
+        """The pool a segment about to be captured goes into: ``pool``, or
+        a fresh one when every graph captured into it has died (a plan
+        dropped with its steps), for its uses can no longer grow."""
+        if not self.graphs:
+            self.new_pool()
+        return self.pool
 
 
 @dataclasses.dataclass
@@ -291,8 +309,9 @@ class StepGraph:
         later one the host call's results (``copies``: (device, pinned)
         pairs); then every group's stream forks from the capture."""
         self._graph = torch.cuda.CUDAGraph()
-        self._graph.capture_begin(pool=self.home.pool,
+        self._graph.capture_begin(pool=self.home.pool_for_capture(),
                                   capture_error_mode="thread_local")
+        self.home.graphs.add(self._graph)
         self.moved.append(collections.Counter())
         if first:  # every upload slot, in one copy
             self.staged.copy_(self.pinned, non_blocking=True)

@@ -66,6 +66,9 @@ def _sorted_inputs(seed, E, Ka, Kb, R, hub=0.0, device="cuda"):
     (3000, 2, 257, 1, 0.0),        # one row across three chunks
     (20000, 4, 25, 64, 0.6),       # hub row spanning many chunks
     (4000, 100, 10, 500, 0.0),     # K_hat = 1000 (4-mode, K = 10)
+    # K_hat = 1000 with enron's mode-0 hub: 8 elements a tile, the hub
+    # row's partials added in series by the fix-up
+    (200_000, 100, 10, 6066, 0.09),
     (2048, 3, 3, 4096, 0.0),       # exact chunk multiple, sparse rows
 ])
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
@@ -105,7 +108,10 @@ def test_kron_segsum_kernel_empty_and_checks(cuda):
                                    (1000, 513, 16),
                                    # the sketch panel: one pass of 8 columns
                                    # and a tail of 2
-                                   (28818, 100, 10), (12092, 100, 10)])
+                                   (28818, 100, 10), (12092, 100, 10),
+                                   # K = 1000 (four modes at K = 10): 22
+                                   # rows a block staged for Z^T y
+                                   (24427, 1000, 1), (24427, 1000, 8)])
 def test_oracle_pair_kernel_matches_plain(cuda, R, K, s):
     g = torch.Generator(device="cpu").manual_seed(R + K + s)
     Z = torch.randn((R, K), generator=g).to(cuda)
@@ -303,7 +309,9 @@ def test_kron_segsum_gather_bitwise_row_form(cuda, case, precision):
                                      (3, 500, 37, 5), (2, 40, 1000, 16),
                                      (1, 28818, 100, 1),
                                      # the sketch panel on stacked ranks
-                                     (4, 7206, 100, 10), (4, 3024, 100, 10)])
+                                     (4, 7206, 100, 10), (4, 3024, 100, 10),
+                                     # four modes: K = 1000, fused_block8
+                                     (4, 6107, 1000, 8)])
 def test_oracle_pair_stacked_bitwise_single_calls(cuda, P, R, K, s):
     """A stacked call gives each rank the bits of a single call on that
     rank's rows, within 2e-4 of the plain version; reruns bitwise."""
@@ -1362,3 +1370,78 @@ def test_hooi_on_another_card_from_a_thread(two_gpus):
             got = pool.submit(run).result(timeout=300)
     assert seen and all(s == (1, 1) for s in seen)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------- four modes and the schemes
+def _run_pair(t, core, pl, **kw):
+    """The same run captured (a fresh executor) and eagerly (its captures
+    off): ((dec, stats) captured, (dec, stats) eager)."""
+    captured = HooiExecutor(4)
+    eager = HooiExecutor(4)
+    eager._home = None
+    got = captured.run(t, core, pl, **kw)
+    want = eager.run(t, core, pl, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("path", ["baseline", "liteopt"])
+def test_four_mode_dist_captured_bitwise_eager_and_cpu(cuda, path):
+    """The paper suite's enron-s mirror (four modes, a hub on mode 0) at
+    core 10^4, K̂ = 1000, ``fused_block8``: the captured run is its eager
+    run bit for bit, and its fits lie within 1e-4 of the CPU path's."""
+    from repro_torch.data.tensors import paper_suite
+
+    t = paper_suite(0.25)["enron-s"]
+    core = (10, 10, 10, 10)
+    kw = dict(n_invocations=2, path=path, seed=3, lanczos_block=8,
+              fused_zbuild=True, use_fused_oracle=True)
+    pl = port_plan.plan(t, "lite", 4, core_dims=core, path="auto")
+    got, want = _run_pair(t, core, pl, **kw)
+    assert got[1].step_captures == 4 and want[1].step_captures == 0
+    assert _equal_runs(got, want)
+    _, cpu = dist_hooi(t, core, 4, scheme=pl, device="cpu", **kw)
+    np.testing.assert_allclose(got[1].fits, cpu.fits, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("path", ["baseline", "liteopt"])
+@pytest.mark.parametrize("scheme", ["medium", "hypergraph"])
+def test_uni_policy_plan_captured_bitwise_eager(cuda, scheme, path):
+    """MediumG and HyperG plans (one copy of the elements, each mode's rows
+    shared by several ranks: their own ``Lp``, boundary maps and padding)
+    through captured steps give the eager run's bits."""
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    pl = port_plan.plan(t, scheme, 4, core_dims=(5, 5, 5), path="auto")
+    assert pl.scheme.uni
+    got, want = _run_pair(t, (5, 5, 5), pl, n_invocations=2, path=path,
+                          seed=2, lanczos_block=8, fused_zbuild=True,
+                          use_fused_oracle=True)
+    assert got[1].step_captures == 3
+    assert _equal_runs(got, want)
+
+
+def test_capture_after_every_graph_of_the_home_died(cuda):
+    """A plan dropped with its captured steps leaves its executor's pool
+    without a live graph; a later plan's capture takes a fresh pool (a
+    pool whose uses have dropped to none cannot be captured into: PyTorch's
+    host allocator asserts), and its runs replay bitwise."""
+    import gc
+
+    t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
+    ex = HooiExecutor(4)
+    kw = dict(n_invocations=2, path="liteopt", seed=2, lanczos_block=8,
+              fused_zbuild=True, use_fused_oracle=True)
+    pl = port_plan.plan(t, "lite", 4, core_dims=(5, 5, 5), path="auto",
+                        use_cache=False)
+    assert ex.run(t, (5, 5, 5), pl, **kw)[1].step_captures == 3
+    first = ex._home.pool
+    del pl
+    gc.collect()
+    assert not ex._home.graphs
+    pl = port_plan.plan(t, "coarse", 4, core_dims=(5, 5, 5), path="auto",
+                        use_cache=False)
+    got = ex.run(t, (5, 5, 5), pl, **kw)
+    again = ex.run(t, (5, 5, 5), pl, **kw)
+    assert got[1].step_captures == 3 and again[1].graph_replays == 6
+    assert ex._home.pool != first and len(ex._home.graphs) >= 3
+    assert _equal_runs(got, again)
