@@ -34,7 +34,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, tracing
 from repro_torch.core.coo import SparseTensor
 from repro_torch.device import (full_precision_matmul, on_device,
                                 resolve_device)
@@ -158,14 +158,13 @@ def hooi_invocation(
                                  warm_start)
     obj = None if objective is None else resolve_objective(objective)
     new_factors = list(factors)
-    track = timings if timings is not None else {}
     with on_device(dev):  # the kernels launch on the current device
         coords, values = convert.device_coords(t, dev)
         for n in range(t.ndim):
             new_factors[n] = local_mode_step(
                 coords, values, new_factors, n, t.shape[n], key.fold_in(n),
                 use_fused_oracle=bool(use_fused_oracle), precision=prec,
-                timings=track, objective=obj,
+                timings=timings, objective=obj,
                 **_mode_knobs(new_factors, n, t.shape[n], blk, fz, warm,
                               lanczos_iters))
     return new_factors
@@ -182,9 +181,10 @@ def fit_score(t: SparseTensor, dec: Decomposition) -> float:
     ``repro_torch.streaming``) provides the true norm as ``_true_norm2``
     and it takes precedence, as in the reference.
     """
-    true_norm2 = getattr(t, "_true_norm2", None)
-    t_norm2 = float(true_norm2) if true_norm2 is not None \
-        else float(np.sum(t.values**2))
+    with tracing.span("sweep.norm2"):
+        true_norm2 = getattr(t, "_true_norm2", None)
+        t_norm2 = float(true_norm2) if true_norm2 is not None \
+            else float(np.sum(t.values**2))
     g_norm2 = float(torch.sum(dec.core**2))
     err2 = max(t_norm2 - g_norm2, 0.0)
     return 1.0 - float(np.sqrt(err2) / (np.sqrt(t_norm2) + 1e-30))
@@ -233,37 +233,41 @@ def hooi(
     ``on_sweep(it, seconds, fit)`` observes every sweep.
     """
     from repro_torch.engine.objective import resolve_objective
+    from repro_torch.engine.steps import local_mode_step
+    from repro_torch.engine.sweep import run_hooi_sweeps
 
     dev = resolve_device(device)
     # the kernels launch on the current device: make it the run's
-    with on_device(dev):
-        full_precision_matmul()
-        prec, blk, fz, warm = _knobs(precision, lanczos_block, fused_zbuild,
-                                     warm_start)
-        obj = resolve_objective(objective)
-        t = obj.prepare_tensor(t)
-        fused = bool(use_fused_oracle)
+    with tracing.span("hooi"), on_device(dev):
+        with tracing.span("hooi.setup"):
+            full_precision_matmul()
+            prec, blk, fz, warm = _knobs(precision, lanczos_block,
+                                         fused_zbuild, warm_start)
+            obj = resolve_objective(objective)
+            t = obj.prepare_tensor(t)
+            fused = bool(use_fused_oracle)
 
-        key = make_key(seed, draw)
-        if isinstance(init, str):
-            if init == "random":
-                factors = random_factors(t.shape, core_dims, key, dev)
-            elif init == "hosvd":
-                factors = hosvd_init(t, core_dims, dev)
+            key = make_key(seed, draw)
+            if isinstance(init, str):
+                if init == "random":
+                    factors = random_factors(t.shape, core_dims, key, dev)
+                elif init == "hosvd":
+                    factors = hosvd_init(t, core_dims, dev)
+                else:
+                    raise ValueError(f"unknown init {init!r}")
             else:
-                raise ValueError(f"unknown init {init!r}")
-        else:
-            factors = convert.factors(init, dev)
-            got = tuple((int(f.shape[0]), int(f.shape[1])) for f in factors)
-            if got != tuple(zip(t.shape, core_dims)):
-                raise ValueError(f"initial factors have shapes {got}, "
-                                 f"expected "
-                                 f"{tuple(zip(t.shape, core_dims))}")
+                factors = convert.factors(init, dev)
+                got = tuple((int(f.shape[0]), int(f.shape[1]))
+                            for f in factors)
+                if got != tuple(zip(t.shape, core_dims)):
+                    raise ValueError(f"initial factors have shapes {got}, "
+                                     f"expected "
+                                     f"{tuple(zip(t.shape, core_dims))}")
 
-        coords, values = convert.device_coords(t, dev)
-
-        from repro_torch.engine.steps import local_mode_step
-        from repro_torch.engine.sweep import run_hooi_sweeps
+            with tracing.span("hooi.upload"):
+                coords, values = convert.device_coords(t, dev)
+                tracing.count("hooi.upload_bytes",
+                              coords.nbytes + values.nbytes)
 
         def mode_step(n, facs, kk):
             return local_mode_step(coords, values, facs, n, t.shape[n], kk,

@@ -29,6 +29,7 @@ to what the distributed main path uses:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import threading
@@ -36,6 +37,8 @@ import time
 from typing import Sequence
 
 import numpy as np
+
+from repro_torch import tracing
 
 from .calibrate import current_cost_model, current_cost_model_state
 from .coo import SparseTensor
@@ -130,6 +133,9 @@ class PartitionPlan:
     # extra FLOP terms — running it under another objective would be wrong
     # twice, so executors and load() refuse a mismatch
     objective: str = "tucker"
+    # host seconds of the build's parts (fingerprint, scheme, partition,
+    # metrics, cost), stamped like build_s; None for a loaded plan
+    build_parts_s: dict | None = None
 
     @property
     def name(self) -> str:
@@ -373,6 +379,16 @@ def plan_cache_clear() -> None:
         _STATS["misses"] = 0
 
 
+@contextlib.contextmanager
+def _part(parts_s: dict, name: str):
+    """Time one part of a plan's build into ``parts_s[name]`` (always, as
+    ``build_s``), under the span ``plan.<name>`` (``repro_torch.tracing``)."""
+    t0 = time.perf_counter()
+    with tracing.span(f"plan.{name}"):
+        yield
+    parts_s[name] = time.perf_counter() - t0
+
+
 def _freeze_kw(kw: dict) -> tuple:
     return tuple(sorted((k, repr(v)) for k, v in kw.items()))
 
@@ -389,15 +405,22 @@ def _build_plan(
     pad_geometric: bool = False,
     objective=None,
     metrics: SchemeMetrics | None = None,
+    *,
+    parts_s: dict,
 ) -> PartitionPlan:
+    """The plan of ``scheme``; ``parts_s`` holds the seconds of the parts
+    already built (fingerprint, scheme) and gets the rest."""
     from repro_torch.distributed.partition import make_mode_partitions
 
     t0 = time.perf_counter()
-    parts = make_mode_partitions(t, scheme, pad_geometric=pad_geometric)
-    if metrics is None:
-        metrics = scheme_metrics(t, scheme, core_dims)
-    cost = _plan_cost(parts, metrics, core_dims, path, model,
-                      objective=objective)
+    with _part(parts_s, "partition"):
+        parts = make_mode_partitions(t, scheme, pad_geometric=pad_geometric)
+    with _part(parts_s, "metrics"):
+        if metrics is None:
+            metrics = scheme_metrics(t, scheme, core_dims)
+    with _part(parts_s, "cost"):
+        cost = _plan_cost(parts, metrics, core_dims, path, model,
+                          objective=objective)
     return PartitionPlan(
         scheme=scheme,
         parts=parts,
@@ -411,6 +434,7 @@ def _build_plan(
         stream_version=getattr(t, "_stream_version", None),
         pad_geometric=pad_geometric,
         objective=objective.name if objective is not None else "tucker",
+        build_parts_s=parts_s,
     )
 
 
@@ -470,6 +494,9 @@ def plan(
     # plans scored under the old rates (model and version read in one
     # snapshot, so the cached cost always matches its key's version)
     model, mv = current_cost_model_state()
+    parts_s: dict = {}
+    with _part(parts_s, "fingerprint"):
+        fp = t.fingerprint()
 
     if isinstance(scheme, Scheme):
         if P is not None and P != scheme.P:
@@ -477,12 +504,14 @@ def plan(
         # key on scheme *content*, never id(): a GC'd scheme's id can be
         # reused by CPython, which would hand a different scheme the old
         # plan; equal-content schemes sharing one cached plan is correct
-        key = ("prebuilt", scheme.content_key(), t.fingerprint(), core, path,
+        key = ("prebuilt", scheme.content_key(), fp, core, path,
                mv, pad_geometric, obj.cache_token())
+        parts_s["scheme"] = 0.0
         return _cached(key, use_cache,
                        lambda: _build_plan(t, scheme, core, path, 0.0, key,
                                            model, pad_geometric,
-                                           objective=obj, metrics=metrics))
+                                           objective=obj, metrics=metrics,
+                                           parts_s=parts_s))
     if metrics is not None:
         raise ValueError("prebuilt metrics are only valid with a prebuilt "
                          "Scheme — named schemes rebuild their policies, "
@@ -490,7 +519,7 @@ def plan(
     P = 8 if P is None else int(P)
 
     name = scheme.lower()
-    key = (t.fingerprint(), name, P, core, path, seed, _freeze_kw(scheme_kw),
+    key = (fp, name, P, core, path, seed, _freeze_kw(scheme_kw),
            mv, pad_geometric, obj.cache_token())
 
     if name == "auto":
@@ -513,10 +542,11 @@ def plan(
         return _cached(key, use_cache, make_auto)
 
     def make() -> PartitionPlan:
-        t0 = time.perf_counter()
-        s = build_scheme(t, name, P, seed=seed, **scheme_kw)
-        return _build_plan(t, s, core, path, time.perf_counter() - t0, key,
-                           model, pad_geometric, objective=obj)
+        with _part(parts_s, "scheme"):
+            s = build_scheme(t, name, P, seed=seed, **scheme_kw)
+        return _build_plan(t, s, core, path, parts_s["scheme"], key,
+                           model, pad_geometric, objective=obj,
+                           parts_s=parts_s)
 
     return _cached(key, use_cache, make)
 

@@ -21,6 +21,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import tracing
+
 __all__ = [
     "unfold",
     "fold",
@@ -123,6 +125,8 @@ def core_from_factors(
     """
     from repro_torch.kernels import ops
 
-    Z0 = ops.penultimate(coords, values, factors, 0, int(factors[0].shape[0]))
+    with tracing.span("zbuild", device=coords.is_cuda):
+        Z0 = ops.penultimate(coords, values, factors, 0,
+                             int(factors[0].shape[0]))
     G0 = factors[0].T @ Z0
     return G0.reshape(tuple(int(f.shape[1]) for f in factors))

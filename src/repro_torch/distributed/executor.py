@@ -65,7 +65,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, tracing
 from repro_torch.core.coo import SparseTensor
 from repro_torch.core.distribution import Scheme
 from repro_torch.core.hooi import Decomposition, random_factors
@@ -193,6 +193,10 @@ class DistHooiStats:
     * ``slo_deadline_s``/``slo_met`` — the submit's latency budget and
       whether submit to result met it;
     * ``lane`` — the scheduler's lane label.
+
+    Set by ``run`` when tracing was on (``repro_torch.tracing``): ``spans``,
+    the call's own ``tracing.summary`` (its ``dist_hooi`` span and every
+    span beneath), else None.
     """
 
     fits: list
@@ -242,6 +246,7 @@ class DistHooiStats:
     slo_deadline_s: float | None = None
     slo_met: bool | None = None
     lane: int | None = None
+    spans: dict | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1012,140 +1017,147 @@ class HooiExecutor:
         ``draw`` fills the random-draw seam (``repro_torch.random``);
         ``on_sweep(it, seconds, fit)`` observes every sweep.
         """
-        if path not in RUN_PATHS:
-            raise ValueError(f"unknown path {path!r} (expected one of "
-                             f"{RUN_PATHS})")
-        t_start = time.perf_counter()
-        tally = _tally()
-        dev = self.device
-        full_precision_matmul()
-        obj = resolve_objective(objective)
-        t = obj.prepare_tensor(t)
-        prec = resolve_precision(precision)
-        blk = resolve_block_size(lanczos_block)
-        fz = resolve_fused_zbuild(fused_zbuild)
-        warm = resolve_warm_start(warm_start)
-        fused = bool(use_fused_oracle)
+        with tracing.span("dist_hooi") as call:
+            if path not in RUN_PATHS:
+                raise ValueError(f"unknown path {path!r} (expected one of "
+                                 f"{RUN_PATHS})")
+            t_start = time.perf_counter()
+            with tracing.span("executor.setup"):
+                tally = _tally()
+                dev = self.device
+                full_precision_matmul()
+                obj = resolve_objective(objective)
+                t = obj.prepare_tensor(t)
+                prec = resolve_precision(precision)
+                blk = resolve_block_size(lanczos_block)
+                fz = resolve_fused_zbuild(fused_zbuild)
+                warm = resolve_warm_start(warm_start)
+                fused = bool(use_fused_oracle)
 
-        t_plan = time.perf_counter()
-        pl, cache_hit = self._plan(t, core_dims, scheme, path, plan_seed,
-                                   pad_geometric, obj)
-        partition_build_s = time.perf_counter() - t_plan
+                t_plan = time.perf_counter()
+                pl, cache_hit = self._plan(t, core_dims, scheme, path,
+                                           plan_seed, pad_geometric, obj)
+                partition_build_s = time.perf_counter() - t_plan
 
-        N = t.ndim
-        key = make_key(seed, draw)
-        if init_factors is None:
-            factors = random_factors(t.shape, core_dims, key, dev)
-        else:
-            factors = _coerce_factors(init_factors, t.shape, core_dims, key,
-                                      dev)
-        parts = pl.parts
-        specs = self._mode_specs(pl, core_dims, path, precision=prec,
-                                 block_size=blk, fused_zbuild=fz,
-                                 objective=obj.name, warm_start=warm)
-        steps = [self._get_step(mp, sp.backend, sp.K_n, niter=sp.niter,
-                                use_fused=fused, precision=sp.precision,
-                                block_size=sp.block_size,
-                                fused_zbuild=sp.fused_zbuild,
-                                objective=sp.objective,
-                                warm_start=sp.warm_start)
-                 for mp, sp in zip(parts, specs)]
-        up = self._get_upload(pl, t, tally)
-        label = _backend_label(specs)
-        run_bytes = _run_comm_bytes(pl, specs)
-        on_card = dev.type == "cuda"
+                N = t.ndim
+                key = make_key(seed, draw)
+                if init_factors is None:
+                    factors = random_factors(t.shape, core_dims, key, dev)
+                else:
+                    factors = _coerce_factors(init_factors, t.shape,
+                                              core_dims, key, dev)
+                parts = pl.parts
+                specs = self._mode_specs(pl, core_dims, path, precision=prec,
+                                         block_size=blk, fused_zbuild=fz,
+                                         objective=obj.name, warm_start=warm)
+                steps = [self._get_step(mp, sp.backend, sp.K_n,
+                                        niter=sp.niter, use_fused=fused,
+                                        precision=sp.precision,
+                                        block_size=sp.block_size,
+                                        fused_zbuild=sp.fused_zbuild,
+                                        objective=sp.objective,
+                                        warm_start=sp.warm_start)
+                         for mp, sp in zip(parts, specs)]
+                up = self._get_upload(pl, t, tally)
+                label = _backend_label(specs)
+                run_bytes = _run_comm_bytes(pl, specs)
+                on_card = dev.type == "cuda"
+                setup_s = time.perf_counter() - t_start
 
-        spectra: dict = {}
+            spectra: dict = {}
 
-        def mode_step(n, facs, kk):
-            skey, step = steps[n]
-            F, sv = self._call_step(skey, step, up, up.arrs[n], facs, kk,
-                                    tally)
-            if isinstance(F, GroupTensor):  # the groups' shards come home
-                F = F.home("factors")
-            spectra[n] = sv
-            # the stacked (P, Lp, k) rows are in relabelled order: flatten
-            # over the ranks, restore the original row order, then let the
-            # objective refine the full-row factor — the update the local
-            # path applies, so P=1 parity covers every objective
-            return obj.refine_factor(
-                F.reshape(-1, F.shape[-1])[up.row_perms[n]], sv)
+            def mode_step(n, facs, kk):
+                skey, step = steps[n]
+                F, sv = self._call_step(skey, step, up, up.arrs[n], facs, kk,
+                                        tally)
+                if isinstance(F, GroupTensor):  # the groups' shards come home
+                    F = F.home("factors")
+                spectra[n] = sv
+                # the stacked (P, Lp, k) rows are in relabelled order:
+                # flatten over the ranks, restore the original row order,
+                # then let the objective refine the full-row factor — the
+                # update the local path applies, so P=1 parity covers every
+                # objective
+                return obj.refine_factor(
+                    F.reshape(-1, F.shape[-1])[up.row_perms[n]], sv)
 
-        sweep_s: list[float] = []
-        cold = {"seen": 0}
+            sweep_s: list[float] = []
+            cold = {"seen": 0}
 
-        def report(it, seconds, fit):
-            sweep_s.append(seconds)
-            paid = tally["step_compilations"] + tally["step_captures"]
+            def report(it, seconds, fit):
+                sweep_s.append(seconds)
+                paid = tally["step_compilations"] + tally["step_captures"]
+                with self._lock:
+                    self._samples.append({
+                        "critical_path_flops":
+                            pl.metrics.critical_path_flops,
+                        "ttm_flops": pl.metrics.ttm_flops_max,
+                        "svd_flops": pl.metrics.svd_flops_max,
+                        "comm_bytes": run_bytes,
+                        "seconds": seconds,
+                        # a sweep that compiled or captured measures that,
+                        # not the machine's rates
+                        "warm": paid == cold["seen"],
+                        "P": self.P, "path": path, "scheme": pl.name,
+                        "kernel": on_card,
+                        "comm_backend": label, "precision": prec,
+                        **self._labels(),
+                    })
+                cold["seen"] = paid
+                if on_sweep is not None:
+                    on_sweep(it, seconds, fit)
+
+            objective_metrics: dict = {}
+            moved = self._moved_by_kind()
+            dec, fits = run_hooi_sweeps(up.coords, up.values, t, factors, key,
+                                        n_invocations, mode_step,
+                                        on_sweep=report, objective=obj,
+                                        metrics_out=objective_metrics)
+            moved = {k: v - moved[k] for k, v in self._moved_by_kind().items()}
             with self._lock:
-                self._samples.append({
-                    "critical_path_flops": pl.metrics.critical_path_flops,
-                    "ttm_flops": pl.metrics.ttm_flops_max,
-                    "svd_flops": pl.metrics.svd_flops_max,
-                    "comm_bytes": run_bytes,
-                    "seconds": seconds,
-                    # a sweep that compiled or captured measures that, not
-                    # the machine's rates
-                    "warm": paid == cold["seen"],
-                    "P": self.P, "path": path, "scheme": pl.name,
-                    "kernel": on_card,
-                    "comm_backend": label, "precision": prec,
-                    **self._labels(),
-                })
-            cold["seen"] = paid
-            if on_sweep is not None:
-                on_sweep(it, seconds, fit)
-
-        objective_metrics: dict = {}
-        setup_s = time.perf_counter() - t_start
-        moved = self._moved_by_kind()
-        dec, fits = run_hooi_sweeps(up.coords, up.values, t, factors, key,
-                                    n_invocations, mode_step,
-                                    on_sweep=report, objective=obj,
-                                    metrics_out=objective_metrics)
-        moved = {k: v - moved[k] for k, v in self._moved_by_kind().items()}
-        with self._lock:
-            self._stats["runs"] += 1
-        stats = DistHooiStats(
-            fits=fits, sweep_s=sweep_s,
-            comm={n: pl.comm(n) for n in range(N)},
-            r_pad={n: parts[n].R_pad for n in range(N)},
-            e_pad={n: parts[n].E_pad for n in range(N)},
-            scheme=pl.name,
-            selection=pl.candidates,
-            partition_build_s=partition_build_s,
-            setup_s=setup_s,
-            plan_cache_hit=cache_hit,
-            plan_cache=plan_cache_stats(),
-            step_compilations=tally["step_compilations"],
-            step_cache_hits=tally["step_cache_hits"],
-            step_captures=tally["step_captures"],
-            graph_replays=tally["graph_replays"],
-            uploads=tally["uploads"],
-            upload_cache_hit=tally["upload_cache_hits"] > 0,
-            executor=self.stats(),
-            z_kernel={n: on_card for n in range(N)},
-            comm_backends={n: specs[n].backend for n in range(N)},
-            fused_oracle=fused,
-            precision=prec,
-            lanczos_block={n: specs[n].block_size for n in range(N)},
-            fused_zbuild=fz,
-            z_passes={n: count_z_passes(
-                specs[n].niter, specs[n].fused_zbuild,
-                warm_start=specs[n].warm_start,
-                power_iters=DEFAULT_POWER_ITERS
-                if specs[n].warm_start == "sketch" else 0)
-                for n in range(N)},
-            objective=obj.name,
-            objective_metrics=objective_metrics or None,
-            warm_start={n: specs[n].warm_start for n in range(N)},
-            mode_spectra={n: v.cpu().numpy() for n, v in spectra.items()}
-            or None,
-            groups=self.groups,
-            group_bytes=sum(moved.values()),
-            group_bytes_u=moved["u"],
-            group_bytes_factors=moved["factors"],
-        )
+                self._stats["runs"] += 1
+            stats = DistHooiStats(
+                fits=fits, sweep_s=sweep_s,
+                comm={n: pl.comm(n) for n in range(N)},
+                r_pad={n: parts[n].R_pad for n in range(N)},
+                e_pad={n: parts[n].E_pad for n in range(N)},
+                scheme=pl.name,
+                selection=pl.candidates,
+                partition_build_s=partition_build_s,
+                setup_s=setup_s,
+                plan_cache_hit=cache_hit,
+                plan_cache=plan_cache_stats(),
+                step_compilations=tally["step_compilations"],
+                step_cache_hits=tally["step_cache_hits"],
+                step_captures=tally["step_captures"],
+                graph_replays=tally["graph_replays"],
+                uploads=tally["uploads"],
+                upload_cache_hit=tally["upload_cache_hits"] > 0,
+                executor=self.stats(),
+                z_kernel={n: on_card for n in range(N)},
+                comm_backends={n: specs[n].backend for n in range(N)},
+                fused_oracle=fused,
+                precision=prec,
+                lanczos_block={n: specs[n].block_size for n in range(N)},
+                fused_zbuild=fz,
+                z_passes={n: count_z_passes(
+                    specs[n].niter, specs[n].fused_zbuild,
+                    warm_start=specs[n].warm_start,
+                    power_iters=DEFAULT_POWER_ITERS
+                    if specs[n].warm_start == "sketch" else 0)
+                    for n in range(N)},
+                objective=obj.name,
+                objective_metrics=objective_metrics or None,
+                warm_start={n: specs[n].warm_start for n in range(N)},
+                mode_spectra={n: v.cpu().numpy() for n, v in spectra.items()}
+                or None,
+                groups=self.groups,
+                group_bytes=sum(moved.values()),
+                group_bytes_u=moved["u"],
+                group_bytes_factors=moved["factors"],
+            )
+        if call is not None:
+            stats.spans = tracing.summary(call=call)
         return dec, stats
 
     # ----------------------------------------------------- stochastic rung

@@ -38,7 +38,7 @@ from typing import ClassVar, Sequence
 import numpy as np
 import torch
 
-from repro_torch import envknobs
+from repro_torch import envknobs, tracing
 
 __all__ = ["Objective", "TuckerObjective", "CompletionObjective",
            "NNTuckerObjective", "TUCKER", "resolve_objective",
@@ -312,9 +312,10 @@ class NNTuckerObjective(Objective):
         return torch.from_numpy(g64).to(device=core.device, dtype=core.dtype)
 
     def fit(self, t, core, factors) -> float:
-        true_norm2 = getattr(t, "_true_norm2", None)
-        t2 = float(true_norm2) if true_norm2 is not None else float(
-            np.sum(np.asarray(t.values, dtype=np.float64) ** 2))
+        with tracing.span("sweep.norm2"):
+            true_norm2 = getattr(t, "_true_norm2", None)
+            t2 = float(true_norm2) if true_norm2 is not None else float(
+                np.sum(np.asarray(t.values, dtype=np.float64) ** 2))
         pred = predict_at_coords(core, factors, t.coords)
         tm = float(torch.dot(_f64(t.values, pred.device), pred))
         core64 = core.detach().cpu().double().numpy()

@@ -37,6 +37,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.lanczos import (block_start_panel, gk_block_bidiag,
                                       lanczos_niter, svd_from_bidiag)
 from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, power_refine,
@@ -279,29 +280,32 @@ def local_mode_step(
     if timings is not None:
         _sync(Z)
     t1 = time.perf_counter()
-    matvec, rmatvec = z_products(Z, fused=use_fused_oracle)
-    if niter is None:
-        niter = (sketch_niter(k, num_rows, Khat, block_size)
-                 if warm_start == "sketch"
-                 else lanczos_niter(k, num_rows, Khat,
-                                    block_size if blockish else 1))
-    elif not blockish:
-        niter = max(int(min(niter, num_rows, Khat)),
-                    min(k, num_rows, Khat))
-    if warm_start == "sketch":
-        seed = rmatvec(factors[mode][:, :min(block_size, k)].contiguous())
-        first_panel = seeded_start_panel(seed, key, Khat, block_size)
-        first_panel = power_refine(matvec, rmatvec, first_panel,
-                                   DEFAULT_POWER_ITERS)
-    if blockish:
-        U, B = gk_block_bidiag(matvec, rmatvec, num_rows, Khat, niter,
-                               block_size, key, axis=None,
-                               first_panel=first_panel,
-                               first_product=first_product, device=Z.device)
-        left, S = svd_from_bidiag(U, B, k, key, axis=None)
-    else:
-        left, S = solve_oracle(matvec, rmatvec, num_rows, Khat, k, niter,
-                               key, device=Z.device)
+    with tracing.span("lanczos"):
+        matvec, rmatvec = z_products(Z, fused=use_fused_oracle)
+        if niter is None:
+            niter = (sketch_niter(k, num_rows, Khat, block_size)
+                     if warm_start == "sketch"
+                     else lanczos_niter(k, num_rows, Khat,
+                                        block_size if blockish else 1))
+        elif not blockish:
+            niter = max(int(min(niter, num_rows, Khat)),
+                        min(k, num_rows, Khat))
+        if warm_start == "sketch":
+            seed = rmatvec(factors[mode][:, :min(block_size, k)]
+                           .contiguous())
+            first_panel = seeded_start_panel(seed, key, Khat, block_size)
+            first_panel = power_refine(matvec, rmatvec, first_panel,
+                                       DEFAULT_POWER_ITERS)
+        if blockish:
+            U, B = gk_block_bidiag(matvec, rmatvec, num_rows, Khat, niter,
+                                   block_size, key, axis=None,
+                                   first_panel=first_panel,
+                                   first_product=first_product,
+                                   device=Z.device)
+            left, S = svd_from_bidiag(U, B, k, key, axis=None)
+        else:
+            left, S = solve_oracle(matvec, rmatvec, num_rows, Khat, k,
+                                   niter, key, device=Z.device)
     if objective is not None:
         left = objective.refine_factor(left, S)
     if timings is not None:

@@ -14,6 +14,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.random import Key
 
 __all__ = ["sweep_key", "run_hooi_sweeps"]
@@ -42,7 +43,10 @@ def run_hooi_sweeps(
     ``on_sweep(it, seconds, fit)`` observes each sweep's wall time up to the
     device finishing its mode steps (the core and fit come after). The core
     is (re)finalized from the final factors, so ``n_invocations=0`` still
-    yields a valid decomposition of the bootstrap factors.
+    yields a valid decomposition of the bootstrap factors. With tracing on
+    (``repro_torch.tracing``) the spans ``sweep``, ``sweep.steps`` (the
+    interval ``on_sweep`` gets), ``sweep.core`` (the core and
+    ``finalize_core``) and ``sweep.fit`` time each sweep.
 
     ``objective`` (an ``engine.objective.Objective``) owns the per-sweep
     accounting: ``finalize_core``, ``fit`` and ``sweep_metrics``; ``None``
@@ -57,23 +61,30 @@ def run_hooi_sweeps(
     fits: list[float] = []
     core = None
     for it in range(n_invocations):
-        t0 = time.perf_counter()
-        for n in range(N):
-            factors[n] = mode_step(n, factors, sweep_key(key, it, N, n))
-        if coords.is_cuda:
-            torch.cuda.synchronize(coords.device)
-        sweep_s = time.perf_counter() - t0
-        core = core_from_factors(coords, values, factors)
-        if objective is None:
-            fit = fit_score(t, Decomposition(core=core, factors=factors))
-        else:
-            core = objective.finalize_core(core, factors)
-            fit = objective.fit(t, core, factors)
-            if metrics_out is not None:
+        with tracing.span("sweep"):
+            with tracing.span("sweep.steps"):
+                t0 = time.perf_counter()
+                for n in range(N):
+                    factors[n] = mode_step(n, factors,
+                                           sweep_key(key, it, N, n))
+                if coords.is_cuda:
+                    torch.cuda.synchronize(coords.device)
+                sweep_s = time.perf_counter() - t0
+            with tracing.span("sweep.core"):
+                core = core_from_factors(coords, values, factors)
+                if objective is not None:
+                    core = objective.finalize_core(core, factors)
+            with tracing.span("sweep.fit"):
+                if objective is None:
+                    fit = fit_score(t, Decomposition(core=core,
+                                                     factors=factors))
+                else:
+                    fit = objective.fit(t, core, factors)
+            if objective is not None and metrics_out is not None:
                 objective.sweep_metrics(metrics_out, t, core, factors)
-        fits.append(fit)
-        if on_sweep is not None:
-            on_sweep(it, sweep_s, fit)
+            fits.append(fit)
+            if on_sweep is not None:
+                on_sweep(it, sweep_s, fit)
     if core is None:  # n_invocations == 0: finalize the initial factors
         core = core_from_factors(coords, values, factors)
         if objective is not None:

@@ -9,7 +9,9 @@ its plain version for tensors on the CPU. The device decides, not a flag.
 kernel returns ``(Z, Z @ X)`` for the first block-Lanczos panel X.
 ``build_group_z`` runs either on each device group of a
 ``distributed.mesh.RankMesh``: one launch per group over its ranks'
-elements, on its device and stream.
+elements, on its device and stream. Each build opens one ``zbuild`` span
+(``repro_torch.tracing``), timed on the device where the elements are on
+the card (on a mesh, host time only).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch import envknobs
+from repro_torch import envknobs, tracing
 from repro_torch.kernels import ops as kernel_ops
 
 __all__ = ["build_local_z", "build_local_z_oracle", "build_group_z",
@@ -82,6 +84,13 @@ def build_local_z(
     since raw COO order is arbitrary. ``precision="bf16"`` is the kernel's
     contract: operands and products rounded to bf16, f32 accumulation.
     """
+    with tracing.span("zbuild", device=coords.is_cuda):
+        return _local_z(coords, values, local_rows, factors, mode, num_rows,
+                        sorted_rows, precision)
+
+
+def _local_z(coords, values, local_rows, factors, mode, num_rows,
+             sorted_rows, precision):
     fn = (kernel_ops.penultimate_sorted if sorted_rows
           else kernel_ops.penultimate_local)
     return fn(coords, values, local_rows, factors, mode, num_rows,
@@ -106,6 +115,13 @@ def build_local_z_oracle(
     (the reference builds Z and multiplies separately there; the result is
     the same up to f32 rounding).
     """
+    with tracing.span("zbuild", device=coords.is_cuda):
+        return _local_z_oracle(coords, values, local_rows, factors, mode,
+                               num_rows, X, sorted_rows, precision)
+
+
+def _local_z_oracle(coords, values, local_rows, factors, mode, num_rows, X,
+                    sorted_rows, precision):
     fn = (kernel_ops.penultimate_sorted_oracle if sorted_rows
           else kernel_ops.penultimate_local_oracle)
     return fn(coords, values, local_rows, factors, mode, num_rows, X,
@@ -135,22 +151,23 @@ def build_group_z(
     concatenated at home in the stacked layout, or with ``gather=False``
     left on the groups as a list (the boundary space places it there).
     """
-    Zs, ZXs = [], []
-    for g, arrs in enumerate(groups):
-        facs = [None if j == mode else mesh.to_group(f, g, "factors")
-                for j, f in enumerate(factors)]
-        Xg = None if X is None else mesh.to_group(X, g)
-        with mesh.group(g):
-            if Xg is None:
-                Zs.append(build_local_z(arrs["coords"], arrs["values"],
-                                        arrs["rows"], facs, mode, num_rows,
-                                        precision=precision))
-            else:
-                Z, ZX = build_local_z_oracle(
-                    arrs["coords"], arrs["values"], arrs["rows"], facs,
-                    mode, num_rows, Xg, precision=precision)
-                Zs.append(Z)
-                ZXs.append(ZX)
+    with tracing.span("zbuild"):  # host time only: groups have own streams
+        Zs, ZXs = [], []
+        for g, arrs in enumerate(groups):
+            facs = [None if j == mode else mesh.to_group(f, g, "factors")
+                    for j, f in enumerate(factors)]
+            Xg = None if X is None else mesh.to_group(X, g)
+            with mesh.group(g):
+                if Xg is None:
+                    Zs.append(_local_z(arrs["coords"], arrs["values"],
+                                       arrs["rows"], facs, mode, num_rows,
+                                       True, precision))
+                else:
+                    Z, ZX = _local_z_oracle(
+                        arrs["coords"], arrs["values"], arrs["rows"], facs,
+                        mode, num_rows, Xg, True, precision)
+                    Zs.append(Z)
+                    ZXs.append(ZX)
     if X is None:
         return Zs, None
     if not gather:

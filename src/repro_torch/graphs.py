@@ -74,6 +74,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch import tracing
+
 __all__ = ["upload", "host_call", "keep", "tally", "StepGraph",
            "CaptureHome"]
 
@@ -111,12 +113,18 @@ def host_call(fn: Callable, *tensors: torch.Tensor):
     capture a cut between two segments."""
     rec = _recorder()
     if rec is None or rec.mode != "capture" or not tensors[0].is_cuda:
-        outs = fn(*(t.cpu() for t in tensors))
-        dev = tensors[0].device
-        if isinstance(outs, torch.Tensor):
-            return outs.to(dev)
-        return tuple(o.to(dev) for o in outs)
+        with tracing.span("graphs.cut"):
+            outs = fn(*(t.cpu() for t in tensors))
+            dev = tensors[0].device
+            single = isinstance(outs, torch.Tensor)
+            outs = tuple(o.to(dev) for o in ((outs,) if single else outs))
+            tracing.count("graphs.cut_bytes", _nbytes(tensors + outs))
+        return outs[0] if single else outs
     return rec.cut(fn, tensors)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.nbytes for t in tensors)
 
 
 def keep(*objs) -> None:
@@ -414,20 +422,26 @@ class StepGraph:
             stream = torch.cuda.current_stream(self.home.device)
             self.slot.key = key
             vals = self._draw()  # on the host while the card still works
-            self._done.synchronize()  # the last replay has read the buffers
+            with tracing.span("graphs.wait"):
+                # the last replay has read the buffers
+                self._done.synchronize()
             self._fill(vals)
             stream.wait_event(self.home.last)
             for s, f in zip(self.factors, factors):
                 s.copy_(f)
-            for i in range(len(self.segments)):
-                self._replay_segment(i)
-                if i < len(self.host_ops):
-                    op = self.host_ops[i]
-                    outs = op.fn(*(t.cpu() for t in op.inputs))
-                    outs = (outs,) if isinstance(outs, torch.Tensor) \
-                        else tuple(outs)
-                    for p, o in zip(op.pinned, outs):
-                        p.copy_(o)
+            with tracing.span("graphs.replay", device=True):
+                for i in range(len(self.segments)):
+                    self._replay_segment(i)
+                    if i < len(self.host_ops):
+                        op = self.host_ops[i]
+                        with tracing.span("graphs.cut"):
+                            outs = op.fn(*(t.cpu() for t in op.inputs))
+                            outs = (outs,) if isinstance(outs, torch.Tensor) \
+                                else tuple(outs)
+                            for p, o in zip(op.pinned, outs):
+                                p.copy_(o)
+                            tracing.count("graphs.cut_bytes",
+                                          _nbytes(op.inputs + op.pinned))
             result = self._results()
             self._done.record(stream)
             self.home.last.record(stream)

@@ -76,6 +76,8 @@ def test_auto_selection_matches_reference(skewed_tensor):
 
 
 def test_plan_cache_returns_the_same_object(small_tensor):
+    # another test file in this process may have cached these plans
+    port_plan.plan_cache_clear()
     t = _port(small_tensor)
     first = port_plan.plan(t, "lite", 4, core_dims=(3, 3, 3))
     again = port_plan.plan(_port(small_tensor), "lite", 4,
