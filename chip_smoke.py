@@ -182,8 +182,8 @@ Phases, each fatal on failure (nothing is caught):
     5699, 244268, 1176), 54_202_099)`` under the repo's ``enron-s`` skew
     and hub (``SUITE_SPECS``), seed 0, core (10, 10, 10, 10), K̂ = 1000, on
     a fresh shared executor: ``hooi`` for one invocation; every kernel at
-    its shapes (the gather-form ``kron_segsum``, the leading factors folded
-    into ``a`` on the card, against its plain Z summed in element chunks,
+    its shapes (the gather-form ``kron_segsum``, both leading factors
+    gathered by the two-lead walk, against its plain Z summed in element chunks,
     the chunk walk and the hub row's fix-up timed apart; ``oracle_pair`` at
     K = 1000 beside ``torch.matmul``); a Lite plan for P = 4 and
     ``dist_hooi`` with ``fused_block8`` on boundary and psum through
@@ -2835,9 +2835,9 @@ def plain_z(rows, c, v, factors, mode, R, chunk: int):
 def four_mode_single_checks(t4, factors) -> dict:
     """The kernels at the four-mode single-process shapes (every mode's
     elements sorted by its rows, K̂ = 1000): the gather-form
-    ``kron_segsum`` (N >= 4: the leading factors folded into ``a`` on the
-    card) against its chunked plain version, rerun bitwise, timed against
-    its bound, the chunk walk and the fix-up timed apart (the fix-up adds a
+    ``kron_segsum`` (both leading factors gathered by the two-lead walk, no
+    fold of ``a``) against its chunked plain version, rerun bitwise, timed
+    against its bound, the chunk walk and the fix-up timed apart (the fix-up adds a
     row's chunk partials in series: mode 0's hub row); ``oracle_pair`` on
     that Z as the vector Lanczos calls it (one half per call, s = 1)
     against its plain version and timed beside ``torch.matmul``."""
@@ -2873,8 +2873,8 @@ def four_mode_single_checks(t4, factors) -> dict:
         fixup = device_ms(gather, reps=3, match="fixup_kernel")
         bound, by = gather_bound_ms(E, t4.ndim, Ka, Kb, R,
                                     factor_rows_read(factors, mode))
-        log(f"four-mode kron_segsum mode {mode}: gather ms={ms:.4f} (the "
-            f"fold of a on the card included) chunk walk device_ms="
+        log(f"four-mode kron_segsum mode {mode}: gather ms={ms:.4f} (two-"
+            f"lead walk, no fold of a) chunk walk device_ms="
             f"{walk:.4f} fix-up device_ms={fixup:.4f} (largest row {hub} "
             f"elements, {-(-hub // 1024)} chunks of partials) bound_ms="
             f"{bound:.4f} ({by}); peak "

@@ -8,16 +8,20 @@
 // needs no scatter at all.
 //
 // Two input forms run through the same chunk kernel:
-//  * the gather form (the main path): per element its row id, its value and
-//    its int32 coordinates, one (E, N) row-major row; a[e] = value[e] *
-//    F_lead[coords[e, col_a]] (one f32 multiply per entry, as the host's
-//    split forms it) and b[e] = F_last[coords[e, col_b]], read from the small
-//    factor matrices, which stay in L2. For N >= 4 the leading factors are
-//    folded on the host into a (E, Ka) `a` and only b is gathered;
+//  * the gather form (the main path at N = 3): per element its row id, its
+//    value and its int32 coordinates, one (E, N) row-major row; a[e] =
+//    value[e] * F_lead[coords[e, col_a]] (one f32 multiply per entry, as the
+//    host's split forms it) and b[e] = F_last[coords[e, col_b]], read from
+//    the small factor matrices, which stay in L2. For N >= 5 the leading
+//    factors are folded on the host into a (E, Ka) `a` and only b is
+//    gathered;
 //  * the row form (the TPU function's own signature): a and b given per
 //    element, the element's own row as the index and no value factor.
 //  Given the same a bits, both forms give the same Z bits: the same walk and
-//  the same arithmetic in the same order.
+//  the same arithmetic in the same order. At N = 4 the main path takes a
+//  third form with its own walk (lead2::chunk_kernel, below): both leading
+//  factors gathered, a formed in registers, the same chunks, partial slots
+//  and fix-up, so Z is bitwise the folded a's through the gather form.
 //
 // What bounds it on an H100: bytes. The gather form reads per element 4 B of
 // row id, 4 B of value and 4*N B of coordinates (20 B at N = 3), the factors
@@ -30,6 +34,20 @@
 // one, several elements per instruction (a warp instruction touches few
 // cache lines), so the walk itself reads only shared memory and the
 // gather latency hides behind it.
+//
+// The four-mode form is bound by operations instead: per element K̂ = Ka*Kb
+// multiply-adds (1000 at K = 10 per mode: 2*E*K̂ flops, 1.6 ms at enron's
+// 54.2M elements on the f32 peak) against 24 B of records and three 40-byte
+// factor rows from L2. Folding a on the host instead wrote and read an
+// (E, 100) f32 array (21.7 GB at enron's size), and a walk over it re-read
+// each element's a row once per 32-lane column tile (ten of them at
+// K̂ = 1000), about 250 GB a build from device memory. What its design does
+// about it: one pass carries every column (a lane's kA x kB block of
+// accumulators in registers, grid.y = 1 at K = 10 per mode), so records and
+// gathers are read once and hide behind the multiply-adds; each element's
+// operands are read from shared memory one element ahead of its products;
+// a new row stores a lane's block with 16-byte stores and restarts its sums
+// in place (no copy of the accumulators on the common path).
 //
 // Design:
 //  * Balance under hub slices. One warp walks one chunk of exactly `chunk`
@@ -437,6 +455,347 @@ __global__ void zx_kernel(const float* __restrict__ z,
   }
 }
 
+// The four-mode gather form: two leading factors, gathered per element like
+// the last one, so the (E, Ka) fold of a is never formed. One pass over the
+// elements carries every output column: lane p owns kA consecutive a
+// columns and kB consecutive b columns (kA * kB accumulators in registers;
+// at K = 10 per mode 25 lanes of 4 x 10 cover K̂ = 1000, so grid.y is 1).
+// Per element it forms a[ka] = (value * F1[i]) * F2[j] for its a columns,
+// rounded as the fold rounds it (two f32 multiplies in that order), and
+// multiply-adds them with the last factor's row, read by broadcast. The
+// chunks, the partial slots and the fix-up are the other form's, so Z is
+// bitwise the fold form's, in f32 and under the bf16 contract.
+namespace lead2 {
+
+struct Args {
+  const int* rows;      // (E,)
+  const float* values;  // (E,)
+  const int* coords;    // (E, N)
+  const float* F1;      // (L1, K1): the first leading factor
+  const float* F2;      // (L2, K2): the second (fastest within a)
+  const float* F3;      // (L3, Kb): the last factor
+  float* z;
+  float* part;
+  long long E, nchunks;
+  int num_rows, K1, K2, Kb, chunk, N, c1, c2, c3;
+  int s3;    // staged floats of a last-factor row (covers every b group)
+  int tile;  // elements per staged tile
+};
+
+// record: row id, value, N coordinates; gathered: the three factor rows of
+// an element side by side, each padded to 16 bytes
+__host__ __device__ constexpr int record_words(int N) { return 2 + N; }
+__host__ __device__ constexpr int gather_words(int K1, int K2, int s3) {
+  return padded(K1) + padded(K2) + s3;
+}
+__host__ __device__ constexpr int warp_words(int T, int N, int S) {
+  return kRecStages * record_stage(T, record_words(N)) + 2 * T * S;
+}
+
+// Shared memory of one warp, in 32-bit words (13 KB): 32 elements a tile at
+// K = 10 per mode, where the other form's 10 KB would hold 16, so each
+// tile's wait and copy instructions are spread over twice the elements
+// (about 10% of the walk's time on an H100). Blocks take 52 KB, past the
+// default 48 KB, so the launch raises the kernel's limit.
+constexpr int kWords = 3328;
+
+__host__ __device__ inline int tile_elements(int N, int S) {
+  for (int t = kMaxTile; t >= 1; t >>= 1)
+    if (warp_words(t, N, S) <= kWords) return t;
+  return 0;
+}
+
+// One staged element as a lane reads it: row id, value, its a columns'
+// entries of F1 and F2, and the b row from its first b column (read in
+// 16-byte pieces: kb0 is a multiple of 4 and the staged row long enough).
+template <int kA, int kB>
+struct Element {
+  int row;
+  float v, f1[kA], f2[kA], b[padded(kB)];
+};
+
+// `ge` is the staged element; o1, o2 are byte offsets in it (o2[kA]: the
+// lane's b row), so each read is one add and one shared load
+template <int kA, int kB>
+__device__ __forceinline__ void load_element(Element<kA, kB>& e, const int* srow,
+                                             const float* sval, const char* ge,
+                                             const int (&o1)[kA], const int (&o2)[kA + 1],
+                                             int u) {
+  e.row = srow[u];
+  e.v = sval[u];
+#pragma unroll
+  for (int t = 0; t < kA; ++t) {
+    e.f1[t] = *reinterpret_cast<const float*>(ge + o1[t]);
+    e.f2[t] = *reinterpret_cast<const float*>(ge + o2[t]);
+  }
+  const float4* gb = reinterpret_cast<const float4*>(ge + o2[kA]);
+#pragma unroll
+  for (int w = 0; w < padded(kB) / 4; ++w) {
+    const float4 q = gb[w];
+    e.b[4 * w] = q.x;
+    e.b[4 * w + 1] = q.y;
+    e.b[4 * w + 2] = q.z;
+    e.b[4 * w + 3] = q.w;
+  }
+}
+
+// the lane's accumulators into the row that starts at dst (its real
+// columns only). A whole block of an exact width (every lane at K = 10 per
+// mode) is kA * kB consecutive floats, stored 16 or 8 bytes at a time;
+// otherwise one pointer steps over the a columns, so no per-column offset
+// or predicate stays live in the walk.
+template <int kA, int kB>
+__device__ __forceinline__ void store_block(float* dst, const float (&acc)[kA][kB],
+                                            int ka0, int kb0, int nA, int nB, int Kb) {
+  static_assert((kA * kB) % 4 == 0, "a whole block is stored in float4s");
+  float* p = dst + (long long)ka0 * Kb + kb0;
+  if (Kb == kB && nA == kA) {
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+      for (int i = 0; i < kA * kB; i += 4)
+        *reinterpret_cast<float4*>(p + i) =
+            make_float4(acc[i / kB][i % kB], acc[(i + 1) / kB][(i + 1) % kB],
+                        acc[(i + 2) / kB][(i + 2) % kB], acc[(i + 3) / kB][(i + 3) % kB]);
+    } else {  // rows of an odd Ka: 8-byte aligned (kB is even)
+#pragma unroll
+      for (int i = 0; i < kA * kB; i += 2)
+        *reinterpret_cast<float2*>(p + i) =
+            make_float2(acc[i / kB][i % kB], acc[(i + 1) / kB][(i + 1) % kB]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < kA; ++t, p += Kb) {
+    if (t >= nA) break;
+#pragma unroll
+    for (int w = 0; w < kB; ++w)
+      if (w < nB) p[w] = acc[t][w];
+  }
+}
+
+template <int kA, int kB>
+__device__ __forceinline__ void zero_block(float (&acc)[kA][kB]) {
+#pragma unroll
+  for (int t = 0; t < kA; ++t)
+#pragma unroll
+    for (int w = 0; w < kB; ++w) acc[t][w] = 0.f;
+}
+
+// Blocks an SM must hold: caps the registers (the accumulators and two
+// elements' operands fit without spilling) so that enough warps hide the
+// latency of the gathers and of the shared-memory reads.
+constexpr int kMinBlocks = 3;
+
+// The walk of the other form (records kRecDepth tiles ahead, gathers one
+// tile ahead, the same copy groups in the same order); the differences are
+// the gather of three rows per element, the lane's block of columns, and
+// that each element's operands are read from shared memory one element
+// ahead of its products, so those reads wait behind the previous element's
+// multiply-adds and not in front of them. Columns past the real ones
+// (t >= nA, w >= nB) read clamped entries or staged padding and are never
+// stored.
+template <bool kBf16, int kA, int kB>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock, kMinBlocks) chunk_kernel(Args g) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int N = g.N, T = g.tile;
+  const int K1 = g.K1, K2 = g.K2, Kb = g.Kb;
+  const int s1 = padded(K1), s12 = s1 + padded(K2);
+  const int S = s12 + g.s3;
+  const int Ka = K1 * K2, K = Ka * Kb;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long c = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  if (c >= g.nchunks) return;  // warp-uniform
+  const int RS = record_stage(T, record_words(N));
+  uint32_t* rec = smem + warp * kWords;                          // kRecStages x RS
+  float* gat = reinterpret_cast<float*>(rec + kRecStages * RS);  // 2 x T x S
+
+  const int nbg = (Kb + kB - 1) / kB;
+  const int p = blockIdx.y * 32 + lane;
+  const bool active = p < ((Ka + kA - 1) / kA) * nbg;
+  const int ag = active ? p / nbg : 0;
+  const int ka0 = ag * kA;
+  const int kb0 = (active ? p - ag * nbg : 0) * kB;
+  const int nA = min(kA, Ka - ka0), nB = min(kB, Kb - kb0);
+  // byte offsets in a staged element: each a column's F1 and F2 entries,
+  // and (o2[kA]) the lane's first b column
+  int o1[kA], o2[kA + 1];
+#pragma unroll
+  for (int t = 0; t < kA; ++t) {
+    const int ka = min(ka0 + t, Ka - 1);
+    const int i = ka / K2;
+    o1[t] = 4 * i;
+    o2[t] = 4 * (s1 + ka - i * K2);
+  }
+  o2[kA] = 4 * (s12 + kb0);
+  const long long e0 = c * g.chunk;
+  const long long e1 = min(e0 + g.chunk, g.E);
+  const int ntiles = (int)((e1 - e0 + T - 1) / T);
+  const int head = g.rows[e0];
+  float* head_slot = g.part + (2 * c) * K;
+  float* tail_slot = g.part + (2 * c + 1) * K;
+
+  // gather lanes as in the other form: `wb` floats per copy, h lanes per
+  // element over its three rows, epw elements per warp instruction
+  const bool pairs_ok = ((K1 | K2 | Kb) & 1) == 0 &&
+                        ((reinterpret_cast<uintptr_t>(g.F1) | reinterpret_cast<uintptr_t>(g.F2) |
+                          reinterpret_cast<uintptr_t>(g.F3)) & 7) == 0;
+  const int wb = pairs_ok ? 2 : 1;
+  const int u1 = K1 / wb, u2 = u1 + K2 / wb;
+  const int h = u2 + Kb / wb;
+  const int epw = h <= 32 ? 32 / h : 1;
+  const int slot = h <= 32 ? lane / h : 0;
+  const int q0 = h <= 32 ? lane - slot * h : lane;
+
+  auto tile_start = [&](int k) { return e0 + (long long)k * T; };
+  auto tile_len = [&](int k) { return (int)min((long long)T, e1 - tile_start(k)); };
+  auto rec_at = [&](int k) { return rec + (k % kRecStages) * RS; };
+  auto gat_at = [&](int k) { return gat + (k & 1) * T * S; };
+
+  auto issue_records = [&](int k) {
+    if (k >= ntiles) return;
+    const long long es = tile_start(k);
+    const int n = tile_len(k);
+    uint32_t* buf = rec_at(k);
+    warp_copy(buf, reinterpret_cast<const uint32_t*>(g.rows + es), n, lane);
+    warp_copy(buf + T, reinterpret_cast<const uint32_t*>(g.values + es), n, lane);
+    warp_copy(buf + 2 * T, reinterpret_cast<const uint32_t*>(g.coords + es * N), n * N, lane);
+  };
+
+  // piece q of an element: wb floats of F1, F2 or F3 (chosen by selects,
+  // so the lanes of a warp do not diverge)
+  auto issue_gather = [&](int k) {
+    if (k >= ntiles || slot >= epw) return;
+    const int n = tile_len(k);
+    const int* crd = reinterpret_cast<const int*>(rec_at(k) + 2 * T);
+    float* gs = gat_at(k);
+    for (int q = q0; q < h; q += 32) {
+      const bool in1 = q < u1, in2 = q < u2;
+      const int cc = (in1 ? q : in2 ? q - u1 : q - u2) * wb;
+      const int col = in1 ? g.c1 : in2 ? g.c2 : g.c3;
+      const long long kw = in1 ? K1 : in2 ? K2 : Kb;
+      const float* F = (in1 ? g.F1 : in2 ? g.F2 : g.F3) + cc;
+      float* d = gs + (in1 ? 0 : in2 ? s1 : s12) + cc;
+      for (int u = slot; u < n; u += epw) {
+        const float* src = F + crd[u * N + col] * kw;
+        if (wb == 2) cp_async8(d + u * S, src);
+        else cp_async4(d + u * S, src);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int k = 0; k < kRecDepth; ++k) {
+    issue_records(k);
+    cp_async_commit();
+  }
+  cp_async_wait<kRecDepth - 1>();  // tile 0's records
+  __syncwarp();
+  issue_gather(0);
+  cp_async_commit();
+  cp_async_commit();  // empty: every tile then waits for all but one group
+
+  float acc[kA][kB];
+  zero_block(acc);
+  int cur = head;
+  // One element's products. A new row stores the sums so far and starts
+  // each from 0 (the same sums as zeroing first; the branch writes the
+  // accumulators in place, so none is copied on the common path).
+  auto step = [&](const Element<kA, kB>& e) {
+    float a[kA];
+#pragma unroll
+    for (int t = 0; t < kA; ++t) a[t] = __fmul_rn(__fmul_rn(e.v, e.f1[t]), e.f2[t]);
+    if (e.row != cur) {
+      // cur is not the chunk's last row here (row > cur follows it)
+      if (cur == head)
+        store_block(head_slot, acc, ka0, kb0, nA, nB, Kb);
+      else if ((unsigned)cur < (unsigned)g.num_rows)
+        store_block(g.z + (long long)cur * K, acc, ka0, kb0, nA, nB, Kb);
+      cur = e.row;
+#pragma unroll
+      for (int t = 0; t < kA; ++t)
+#pragma unroll
+        for (int w = 0; w < kB; ++w) acc[t][w] = accumulate<kBf16>(0.f, a[t], e.b[w]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < kA; ++t)
+#pragma unroll
+        for (int w = 0; w < kB; ++w) acc[t][w] = accumulate<kBf16>(acc[t][w], a[t], e.b[w]);
+    }
+  };
+
+  for (int k = 0; k < ntiles; ++k) {
+    cp_async_wait<1>();  // tile k's gather and tile k+1's records
+    __syncwarp();
+    issue_gather(k + 1);
+    cp_async_commit();
+    issue_records(k + kRecDepth);
+    cp_async_commit();
+    if (active) {
+      const int n = tile_len(k);
+      const uint32_t* r = rec_at(k);
+      const int* srow = reinterpret_cast<const int*>(r);
+      const float* sval = reinterpret_cast<const float*>(r + T);
+      const char* gs = reinterpret_cast<const char*>(gat_at(k));
+      const int SB = 4 * S;
+      // two elements in flight: the next one's reads before this one's
+      // products (a read past the tile's end rereads its last element)
+      Element<kA, kB> x, y;
+      load_element(x, srow, sval, gs, o1, o2, 0);
+      for (int u = 0; u < n; u += 2) {
+        const int u1n = min(u + 1, n - 1);
+        load_element(y, srow, sval, gs + u1n * SB, o1, o2, u1n);
+        step(x);
+        if (u + 1 == n) break;
+        const int u2n = min(u + 2, n - 1);
+        load_element(x, srow, sval, gs + u2n * SB, o1, o2, u2n);
+        step(y);
+      }
+    }
+    __syncwarp();
+  }
+  cp_async_wait<0>();  // no copy outlives the warp
+  if (!active) return;
+  // cur is the chunk's last row
+  if (cur == head) {
+    store_block(head_slot, acc, ka0, kb0, nA, nB, Kb);
+    zero_block(acc);
+  }
+  store_block(tail_slot, acc, ka0, kb0, nA, nB, Kb);
+}
+
+template <bool kBf16, int kA, int kB>
+cudaError_t launch(Args a, cudaStream_t st) {
+  const int nbg = (a.Kb + kB - 1) / kB;
+  a.s3 = padded(nbg * kB);
+  a.tile = tile_elements(a.N, gather_words(a.K1, a.K2, a.s3));
+  if (a.tile == 0) return cudaErrorInvalidValue;  // rows too wide to stage
+  const long long pairs = (long long)((a.K1 * a.K2 + kA - 1) / kA) * nbg;
+  const long long pair_tiles = (pairs + 31) / 32;
+  if (pair_tiles > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)((a.nchunks + kWarpsPerBlock - 1) / kWarpsPerBlock),
+                  (unsigned)pair_tiles);
+  const size_t smem = sizeof(uint32_t) * kWarpsPerBlock * kWords;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        chunk_kernel<kBf16, kA, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  chunk_kernel<kBf16, kA, kB><<<grid, 32 * kWarpsPerBlock, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The lane block: 4 x 10 covers a last factor of up to 10 columns in one b
+// group (K = 10 per mode exactly; narrower ones leave columns unused); a
+// wider one takes b groups of 16. Either way kb0 is a multiple of 4.
+template <bool kBf16>
+cudaError_t launch_widths(const Args& a, cudaStream_t st) {
+  if (a.Kb <= 10) return launch<kBf16, 4, 10>(a, st);
+  return launch<kBf16, 2, 16>(a, st);
+}
+
+}  // namespace lead2
+
 template <bool kBf16, bool kGatherA, bool kGatherB>
 cudaError_t launch_chunks(ChunkArgs a, dim3 grid, cudaStream_t st) {
   a.tile = tile_elements(kGatherA, kGatherB, a.N, a.Ka, a.Kb);
@@ -454,6 +813,25 @@ cudaError_t launch_form(const ChunkArgs& a, dim3 grid, cudaStream_t st) {
 }
 
 }  // namespace
+
+// The fix-up of the rows that span chunks, after either chunk walk.
+static int launch_fixup(const int* rows, const float* part, float* z,
+                        long long E, int num_rows, int K, int chunk,
+                        long long nchunks, cudaStream_t st) {
+  const dim3 grid((unsigned)(2 * nchunks), (unsigned)((K + 127) / 128));
+  fixup_kernel<<<grid, 128, 0, st>>>(rows, part, z, E, num_rows, K, chunk, 2 * nchunks);
+  return (int)cudaGetLastError();
+}
+
+// The row products ZX = Z @ x of the fused form, once Z is whole.
+static int launch_zx(const float* z, const float* x, float* zx, int num_rows,
+                     int K, int s, cudaStream_t st) {
+  if (num_rows == 0) return 0;
+  const long long blocks = ((long long)num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  zx_kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, 0, st>>>(z, x, zx, num_rows, K, s);
+  return (int)cudaGetLastError();
+}
 
 // Launch both kernels on `stream`. Form: col_a >= 0 gathers a = values *
 // A[coords[:, col_a]] (then col_b >= 0 too); col_a < 0 reads a as (E, Ka) rows
@@ -488,10 +866,7 @@ extern "C" int kron_segsum_launch(const int* rows, const float* values,
   const cudaError_t err = bf16 ? launch_form<true>(args, grid, st)
                                : launch_form<false>(args, grid, st);
   if (err != cudaSuccess) return (int)err;
-
-  dim3 grid2((unsigned)(2 * nchunks), (unsigned)col_tiles);
-  fixup_kernel<<<grid2, 128, 0, st>>>(rows, part, z, E, num_rows, K, chunk, 2 * nchunks);
-  return (int)cudaGetLastError();
+  return launch_fixup(rows, part, z, E, num_rows, K, chunk, nchunks, st);
 }
 
 // (Z, Z @ X) on `stream`: kron_segsum_launch, then the row products. `x` is
@@ -508,10 +883,41 @@ extern "C" int kron_segsum_oracle_launch(const int* rows, const float* values,
   const int err = kron_segsum_launch(rows, values, coords, A, B, z, part, E,
                                      num_rows, Ka, Kb, N, col_a, col_b, chunk,
                                      bf16, stream);
-  if (err != 0 || num_rows == 0) return err;
-  const long long blocks = ((long long)num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  zx_kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, 0,
-              static_cast<cudaStream_t>(stream)>>>(z, x, zx, num_rows, Ka * Kb, s);
-  return (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_zx(z, x, zx, num_rows, Ka * Kb, s, static_cast<cudaStream_t>(stream));
+}
+
+// The four-mode gather form on `stream`: per element a = (values[e] *
+// F1[coords[e, c1]]) kron F2[coords[e, c2]], formed in the walk and never
+// stored, and b = F3[coords[e, c3]]; Z (num_rows, K1*K2*Kb) zeroed, `part`
+// as for kron_segsum_launch. With s > 0 also ZX = Z @ x, as
+// kron_segsum_oracle_launch (x and zx unused at s = 0). Returns the CUDA
+// error code of the launches (0 = ok).
+extern "C" int kron_segsum_lead2_launch(const int* rows, const float* values,
+                                        const int* coords, const float* F1,
+                                        const float* F2, const float* F3,
+                                        float* z, float* part, const float* x,
+                                        float* zx, long long E, int num_rows,
+                                        int K1, int K2, int Kb, int N, int c1,
+                                        int c2, int c3, int chunk, int s,
+                                        int bf16, void* stream) {
+  if (E <= 0 || num_rows < 0 || K1 <= 0 || K2 <= 0 || Kb <= 0 || chunk <= 0 ||
+      s < 0 || values == nullptr || coords == nullptr || N <= 0 || c1 < 0 ||
+      c2 < 0 || c3 < 0 || c1 >= N || c2 >= N || c3 >= N ||
+      (s > 0 && (x == nullptr || zx == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const long long K = (long long)K1 * K2 * Kb;
+  const long long nchunks = (E + chunk - 1) / chunk;
+  if (K > 0x7fffffffLL || 2 * nchunks > 0x7fffffffLL || (K + 127) / 128 > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  const lead2::Args args{rows, values, coords, F1, F2, F3, z, part, E, nchunks,
+                         num_rows, K1, K2, Kb, chunk, N, c1, c2, c3, 0, 0};
+  const cudaError_t err = bf16 ? lead2::launch_widths<true>(args, st)
+                               : lead2::launch_widths<false>(args, st);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = launch_fixup(rows, part, z, E, num_rows, (int)K, chunk, nchunks, st);
+  if (rc != 0 || s == 0) return rc;
+  return launch_zx(z, x, zx, num_rows, (int)K, s, st);
 }

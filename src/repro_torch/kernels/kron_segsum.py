@@ -14,18 +14,25 @@ Both take the TPU function's own signature, per-element rows ``a`` and
 reading each element's row id, value and coordinates and gathering the
 factor rows themselves, so the (E, Ka) and (E, Kb) operands are never
 materialised. Given the same ``a`` bits, both forms give the same Z bits.
+``kron_segsum_gather2`` takes two leading factors (four-mode tensors) and
+runs a walk of its own that gathers both and forms ``a`` in registers, one
+pass over the elements for every column; Z is bitwise the fold's
+(``ops._lead_a``) through the gather form, with the same chunks, partial
+slots and fix-up.
 
 A tensor on the CPU goes to the plain version (``ref.kron_segsum_ref``,
-``ref.kron_segsum_oracle_ref``, ``ref.kron_segsum_gather_ref``); a CUDA
+``ref.kron_segsum_oracle_ref``, ``ref.kron_segsum_gather_ref``,
+``ref.kron_segsum_gather2_ref``); a CUDA
 tensor goes to the kernel, and anything the kernel does not take raises.
 There is no admission gate and no fallback: the kernels take every row
 count, every panel width and every width the chunk walk can stage in
-shared memory (Ka + Kb up to about 1,250 floats, so K̂ = 1000 for 4-mode
-tensors at K = 10 included); a wider one raises.
+shared memory (Ka + Kb up to about 1,250 floats; the four-mode walk's three
+factor rows up to about 1,600); a wider one raises.
 
 ``kron_segsum.launches`` and ``kron_segsum_oracle.launches`` count the
-calls that launched each kernel, in either form; a call under stream
-capture records a launch and is not counted.
+calls that launched each kernel, in any form, and
+``kron_segsum_gather2.launches`` those of the four-mode walk; a call under
+stream capture records a launch and is not counted.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch
 from . import build, ref
 
 __all__ = ["kron_segsum", "kron_segsum_oracle", "kron_segsum_gather",
-           "CHUNK"]
+           "kron_segsum_gather2", "CHUNK"]
 
 # elements per warp: large enough that the two partial slots per chunk are a
 # small share of the traffic, small enough to give the card many warps
@@ -58,7 +65,11 @@ def _launchers():
         ofn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [
             ctypes.c_int] * 9 + [ctypes.c_void_p]
         ofn.restype = ctypes.c_int
-        _FNS = (fn, ofn)
+        gfn = lib.kron_segsum_lead2_launch
+        gfn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 11 + [ctypes.c_void_p]
+        gfn.restype = ctypes.c_int
+        _FNS = (fn, ofn, gfn)
     return _FNS
 
 
@@ -110,42 +121,57 @@ def _check_panel(X, K, dev):
         raise ValueError("kron_segsum_oracle needs a contiguous X")
 
 
+def _outputs(E, K, num_rows, X, dev):
+    """Z (zeros), Z @ X (None without X) and the chunk partials of one
+    build on the card; no partials when there is nothing to walk."""
+    z = torch.zeros((num_rows, K), dtype=torch.float32, device=dev)
+    if E == 0 or K == 0:  # the sum over no elements
+        zx = None if X is None else torch.zeros(
+            (num_rows, X.shape[1]), dtype=torch.float32, device=dev)
+        return z, zx, None
+    zx = None if X is None else torch.empty(
+        (num_rows, X.shape[1]), dtype=torch.float32, device=dev)
+    part = torch.empty((2 * (-(-E // CHUNK)), K), dtype=torch.float32,
+                       device=dev)
+    return z, zx, part
+
+
+def _finish(rc, X, what):
+    """Raise on a failed launch; count it under its kernel (not under
+    stream capture). Returns the count added."""
+    if rc != 0:
+        raise RuntimeError(f"kron_segsum launch failed with CUDA error {rc} "
+                           f"({what}, s={None if X is None else X.shape[1]})")
+    counted = 0 if torch.cuda.is_current_stream_capturing() else 1
+    if X is None:
+        kron_segsum.launches += counted
+    else:
+        kron_segsum_oracle.launches += counted
+    return counted
+
+
 def _run(rows, values, coords, A, B, col_a, col_b, E, Ka, Kb, num_rows, X,
          precision):
     """Launch the chunk walk and the fix-up (and, with X, the row
     products) on the card; returns Z, or (Z, Z @ X). Counts the launch
     under its kernel."""
     dev = rows.device
-    K = Ka * Kb
-    z = torch.zeros((num_rows, K), dtype=torch.float32, device=dev)
-    if E == 0 or K == 0:  # the sum over no elements
-        return z if X is None else (z, torch.zeros(
-            (num_rows, X.shape[1]), dtype=torch.float32, device=dev))
-    zx = None if X is None else torch.empty(
-        (num_rows, X.shape[1]), dtype=torch.float32, device=dev)
-    part = torch.empty((2 * (-(-E // CHUNK)), K), dtype=torch.float32,
-                       device=dev)
+    z, zx, part = _outputs(E, Ka * Kb, num_rows, X, dev)
+    if part is None:
+        return z if X is None else (z, zx)
     N = 0 if coords is None else coords.shape[1]
     head = (rows.data_ptr(), _ptr(values), _ptr(coords), A.data_ptr(),
             B.data_ptr(), z.data_ptr(), part.data_ptr())
     tail = (1 if precision == "bf16" else 0,
             torch.cuda.current_stream(dev).cuda_stream)
-    fn, ofn = _launchers()
+    fn, ofn, _ = _launchers()
     if X is None:
         rc = fn(*head, E, num_rows, Ka, Kb, N, col_a, col_b, CHUNK, *tail)
     else:
         rc = ofn(*head, X.data_ptr(), zx.data_ptr(), E, num_rows, Ka, Kb, N,
                  col_a, col_b, CHUNK, X.shape[1], *tail)
-    if rc != 0:
-        raise RuntimeError(f"kron_segsum launch failed with CUDA error {rc} "
-                           f"(E={E}, Ka={Ka}, Kb={Kb}, N={N}, "
-                           f"s={None if X is None else X.shape[1]})")
-    counted = 0 if torch.cuda.is_current_stream_capturing() else 1
-    if X is None:
-        kron_segsum.launches += counted
-        return z
-    kron_segsum_oracle.launches += counted
-    return z, zx
+    _finish(rc, X, f"E={E}, Ka={Ka}, Kb={Kb}, N={N}")
+    return z if X is None else (z, zx)
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -262,3 +288,77 @@ def kron_segsum_gather(
     return _run(rows, values if gather_a else None, coords, lead, last,
                 lead_col if gather_a else -1, last_col, E, Ka, Kb, num_rows,
                 X, precision)
+
+
+def kron_segsum_gather2(
+    rows: torch.Tensor,  # (E,) int32, sorted ascending, ids in [0, num_rows)
+    coords: torch.Tensor,  # (E, N) int32, each element's coordinates
+    values: torch.Tensor,  # (E,) float32
+    F1: torch.Tensor,  # (L1, K1) first leading factor
+    F2: torch.Tensor,  # (L2, K2) second leading factor
+    last: torch.Tensor,  # (L, Kb) factor
+    c1: int,
+    c2: int,
+    last_col: int,
+    num_rows: int,
+    *,
+    X: torch.Tensor | None = None,  # (K1*K2*Kb, s) float32 oracle panel
+    precision: str = "f32",
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """``kron_segsum_gather`` with two leading factors (the four-mode walk):
+    ``a[e] = kron(values[e] * F1[coords[e, c1]], F2[coords[e, c2]])``, each
+    entry rounded as ``ops._lead_a`` rounds it (Ka = K1 * K2), formed in
+    registers, and ``b[e] = last[coords[e, last_col]]``. Returns Z, or
+    ``(Z, Z @ X)``, bitwise as ``kron_segsum``/``kron_segsum_oracle`` give
+    them on the fold's ``(rows, a, b)``. Coordinates must index their
+    factors' rows; elements with value 0 add nothing.
+    """
+    _check_precision(precision)
+    if rows.dim() != 1 or coords.dim() != 2 or values.dim() != 1 \
+            or any(f.dim() != 2 for f in (F1, F2, last)):
+        raise ValueError(f"expected rows (E,), coords (E, N), values (E,) "
+                         f"and 2-D factors; got {tuple(rows.shape)}, "
+                         f"{tuple(coords.shape)}, {tuple(values.shape)}, "
+                         f"{tuple(F1.shape)}, {tuple(F2.shape)}, "
+                         f"{tuple(last.shape)}")
+    E, N = coords.shape
+    if rows.shape[0] != E or values.shape[0] != E:
+        raise ValueError(f"element counts differ: rows {rows.shape[0]}, "
+                         f"coords {E}, values {values.shape[0]}")
+    if any(not 0 <= j < N for j in (c1, c2, last_col)):
+        raise ValueError(f"columns {c1}, {c2}, {last_col} outside the {N} "
+                         f"coordinates")
+    floats = (values, F1, F2, last)
+    if rows.dtype != torch.int32 or coords.dtype != torch.int32 \
+            or any(t.dtype != torch.float32 for t in floats):
+        raise TypeError(f"expected int32 rows and coords and float32 "
+                        f"values and factors; got {rows.dtype}, "
+                        f"{coords.dtype}, {[t.dtype for t in floats]}")
+    _check_device(rows, coords, *floats)
+    K1, K2, Kb = F1.shape[1], F2.shape[1], last.shape[1]
+    if X is not None:
+        _check_panel(X, K1 * K2 * Kb, rows.device)
+    if rows.device.type == "cpu":
+        z = ref.kron_segsum_gather2_ref(rows, coords, values, F1, F2, last,
+                                        c1, c2, last_col, num_rows,
+                                        precision)
+        return z if X is None else (z, z @ X)
+    dev = rows.device
+    z, zx, part = _outputs(E, K1 * K2 * Kb, num_rows, X, dev)
+    if part is None:
+        return z if X is None else (z, zx)
+    rc = _launchers()[2](
+        rows.data_ptr(), values.data_ptr(), coords.data_ptr(), F1.data_ptr(),
+        F2.data_ptr(), last.data_ptr(), z.data_ptr(), part.data_ptr(),
+        _ptr(X), _ptr(zx), E, num_rows, K1, K2, Kb, N, c1, c2, last_col,
+        CHUNK, 0 if X is None else X.shape[1],
+        1 if precision == "bf16" else 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    kron_segsum_gather2.launches += _finish(
+        rc, X, f"E={E}, K1={K1}, K2={K2}, Kb={Kb}, N={N}")
+    return z if X is None else (z, zx)
+
+
+# launches of the four-mode walk, counted as well under
+# ``kron_segsum.launches`` or ``kron_segsum_oracle.launches``
+kron_segsum_gather2.launches = 0

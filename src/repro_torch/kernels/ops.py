@@ -11,10 +11,11 @@ Public entry points used by the rest of the port:
   * ``oracle_pair(Z, x, y, P)`` — the fused Lanczos oracle, over P stacked
     ranks.
 
-The wrappers prepare the kernel's layout (sort elements by row; for N >= 4
+The wrappers prepare the kernel's layout (sort elements by row; for N >= 5
 fold the leading Kronecker levels into ``a``) and hand it to the gather
 form of the Z-build kernels, which reads each element's coordinates and
-gathers the factor rows itself. The kernel wrappers choose by device: the
+gathers the factor rows itself (at N = 4 both leading factors' rows, so no
+(E, Ka) array is formed). The kernel wrappers choose by device: the
 plain version for CPU tensors, the CUDA kernel for CUDA tensors. The
 reference's VMEM admission gate and its quiet fallback to the plain path
 are gone: the CUDA kernel takes every shape on the path.
@@ -26,7 +27,9 @@ from typing import Sequence
 
 import torch
 
-from .kron_segsum import kron_segsum_gather
+from repro_torch import tracing
+
+from .kron_segsum import kron_segsum_gather, kron_segsum_gather2
 from .oracle_fused import oracle_pair as _oracle_pair_kernel
 
 __all__ = ["penultimate", "penultimate_local", "penultimate_sorted",
@@ -79,22 +82,47 @@ def _split_ab(
 
 def _gathered(coords, values, local_rows, factors, mode, num_rows, X,
               precision):
-    """The gather form of the Z-build: with one leading factor (N = 3) the
-    kernel gathers both factors' rows; with more, the leading levels are
-    folded into ``a`` here and only the last factor is gathered."""
+    """The gather form of the Z-build: with one or two leading factors
+    (N = 3, 4) the kernel gathers every factor's rows itself; with more, the
+    leading levels are folded into ``a`` here (counted as
+    ``zbuild.fold_bytes``) and only the last factor is gathered."""
     *lead, last = [j for j in range(len(factors)) if j != mode]
     rows = local_rows.to(torch.int32).contiguous()
     coords = coords.to(torch.int32).contiguous()
     values = values.to(torch.float32).contiguous()
-    f_last = factors[last].to(torch.float32).contiguous()
+
+    def f32(j):
+        return factors[j].to(torch.float32).contiguous()
+
     if len(lead) == 1:
-        return kron_segsum_gather(
-            rows, coords, values, factors[lead[0]].to(torch.float32)
-            .contiguous(), f_last, lead[0], last, num_rows, X=X,
-            precision=precision)
+        (j,) = lead
+        return kron_segsum_gather(rows, coords, values, f32(j), f32(last), j,
+                                  last, num_rows, X=X, precision=precision)
+    if len(lead) == 2:
+        j1, j2 = lead
+        return kron_segsum_gather2(rows, coords, values, f32(j1), f32(j2),
+                                   f32(last), j1, j2, last, num_rows, X=X,
+                                   precision=precision)
     a = _lead_a(coords, values, factors, lead).to(torch.float32)
-    return kron_segsum_gather(rows, coords, None, a, f_last, None, last,
+    tracing.count("zbuild.fold_bytes", a.numel() * a.element_size())
+    return kron_segsum_gather(rows, coords, None, a, f32(last), None, last,
                               num_rows, X=X, precision=precision)
+
+
+def _row_order(coords, values, local_rows):
+    """The elements sorted by row on their device: a stable sort (so reruns
+    are bitwise equal) gives the sorted rows and the order. Rows of four or
+    more coordinates are taken column by column into one array: PyTorch's
+    indexing of whole (E, 4) int32 rows took 34.5 ms at 54.2M elements on an
+    H100, by column 12.4 ms (three-coordinate rows, whole: 5.8 ms at
+    76.9M)."""
+    rows, order = torch.sort(local_rows, stable=True)
+    if coords.shape[1] < 4:
+        return coords[order], values[order], rows
+    c = torch.empty_like(coords)
+    for j in range(coords.shape[1]):
+        c[:, j] = coords[:, j][order]
+    return c, values[order], rows
 
 
 def penultimate_sorted(
@@ -124,10 +152,9 @@ def penultimate_local(
 ) -> torch.Tensor:
     """Z for row ids in any order: a stable sort on the tensors' device puts
     them in the kernel's order (stable, so reruns are bitwise equal)."""
-    order = torch.argsort(local_rows, stable=True)
-    return penultimate_sorted(
-        coords[order], values[order], local_rows[order], factors, mode,
-        num_local_rows, precision=precision)
+    c, v, rows = _row_order(coords, values, local_rows)
+    return penultimate_sorted(c, v, rows, factors, mode, num_local_rows,
+                              precision=precision)
 
 
 def penultimate_sorted_oracle(
@@ -160,10 +187,9 @@ def penultimate_local_oracle(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``penultimate_sorted_oracle`` for row ids in any order (stable sort
     on the tensors' device first, as ``penultimate_local``)."""
-    order = torch.argsort(local_rows, stable=True)
-    return penultimate_sorted_oracle(
-        coords[order], values[order], local_rows[order], factors, mode,
-        num_local_rows, X, precision=precision)
+    c, v, rows = _row_order(coords, values, local_rows)
+    return penultimate_sorted_oracle(c, v, rows, factors, mode,
+                                     num_local_rows, X, precision=precision)
 
 
 def penultimate(

@@ -61,6 +61,30 @@ def kron_segsum_gather_ref(
     return kron_segsum_ref(rows, a, b, num_rows, precision)
 
 
+def kron_segsum_gather2_ref(
+    rows: torch.Tensor,
+    coords: torch.Tensor,
+    values: torch.Tensor,
+    F1: torch.Tensor,
+    F2: torch.Tensor,
+    last: torch.Tensor,
+    c1: int,
+    c2: int,
+    last_col: int,
+    num_rows: int,
+    precision: str = "f32",
+) -> torch.Tensor:
+    """``kron_segsum_gather_ref`` with two leading factors:
+    ``a = kron(values * F1[coords[:, c1]], F2[coords[:, c2]])``, formed in
+    that order (as ``ops._lead_a`` forms it)."""
+    a1 = values[:, None] * F1.index_select(0, coords[:, c1].long())
+    a2 = F2.index_select(0, coords[:, c2].long())
+    a = (a1[:, :, None] * a2[:, None, :]).reshape(
+        a1.shape[0], a1.shape[1] * a2.shape[1])
+    return kron_segsum_gather_ref(rows, coords, None, a, last, None, last_col,
+                                  num_rows, precision)
+
+
 def kron_segsum_oracle_ref(
     rows: torch.Tensor,
     a: torch.Tensor,

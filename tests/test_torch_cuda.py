@@ -26,7 +26,8 @@ from repro_torch.distributed.dist_hooi import (HooiExecutor, dist_hooi,
                                                make_ranks_mesh)
 from repro_torch.data.tensors import synth_tensor
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.kron_segsum import kron_segsum, kron_segsum_oracle
+from repro_torch.kernels.kron_segsum import (kron_segsum, kron_segsum_gather2,
+                                             kron_segsum_oracle)
 from repro_torch.distributed import executor as exmod
 from repro_torch.engine.steps import make_mode_step_fn
 from repro_torch.kernels import oracle_fused
@@ -240,12 +241,12 @@ def test_dist_hooi_on_card_matches_cpu(cuda, path):
     assert st_again.fits == st_g.fits
 
 
-def _gather_inputs(seed, shape, core, mode, device, pad=0, hub=0.0):
-    """Elements sorted by the mode's rows on the card, with ``pad`` padding
-    elements (value 0, coordinates 0, the last row) at the end; ``hub``
-    puts that share of the elements in one slice of the mode."""
+def _gather_inputs(seed, shape, core, mode, device, pad=0, hub=0.0,
+                   nnz=20_000):
+    """``nnz`` elements sorted by the mode's rows on the card, with ``pad``
+    padding elements (value 0, coordinates 0, the last row) at the end;
+    ``hub`` puts that share of the elements in one slice of the mode."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    nnz = 20_000
     coords = torch.stack([torch.randint(0, L, (nnz,), generator=g)
                           for L in shape], 1)
     if hub:
@@ -270,22 +271,31 @@ def _gather_inputs(seed, shape, core, mode, device, pad=0, hub=0.0):
     dict(shape=(300, 200, 100), mode=0, hub=0.5),   # hub row over chunks
     dict(shape=(300, 200, 100), mode=2, pad=3000),  # padded partition
     dict(shape=(60, 50, 40, 30), mode=1),           # K_hat = 1000
-], ids=["m0", "m1", "m2", "hub", "padded", "4mode"])
+    dict(shape=(60, 50, 40, 30), mode=0),
+    dict(shape=(60, 50, 40, 30), mode=2),
+    dict(shape=(60, 50, 40, 30), mode=3),
+    dict(shape=(60, 50, 40, 30), mode=0, hub=0.5, nnz=60_000),
+    dict(shape=(60, 50, 40, 30), mode=2, pad=3000),
+], ids=["m0", "m1", "m2", "hub", "padded", "4mode", "4mode_m0", "4mode_m2",
+        "4mode_m3", "4mode_hub", "4mode_padded"])
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 def test_kron_segsum_gather_bitwise_row_form(cuda, case, precision):
     """The gather form's Z (and ZX) is the row form's on the host's
     ``_split_ab`` operands bit for bit, and within 2e-4 of the plain
-    version; reruns bitwise equal."""
+    version; reruns bitwise equal. At four modes the two-lead walk runs
+    (both leading factors gathered, no fold) and still gives the fold's
+    bits."""
     shape, mode = case["shape"], case["mode"]
     core = (10,) * len(shape)
     coords, values, rows, f = _gather_inputs(
         7, shape, core, mode, cuda, pad=case.get("pad", 0),
-        hub=case.get("hub", 0.0))
+        hub=case.get("hub", 0.0), nnz=case.get("nnz", 20_000))
     R = shape[mode]
     Khat = 10 ** (len(shape) - 1)
     X = torch.randn((Khat, 8), generator=torch.Generator().manual_seed(3)
                     ).to(cuda)
-    counts = (kron_segsum.launches, kron_segsum_oracle.launches)
+    counts = (kron_segsum.launches, kron_segsum_oracle.launches,
+              kron_segsum_gather2.launches)
     z = ops.penultimate_sorted(coords, values, rows, f, mode, R,
                                precision=precision)
     z2 = ops.penultimate_sorted(coords, values, rows, f, mode, R,
@@ -293,8 +303,10 @@ def test_kron_segsum_gather_bitwise_row_form(cuda, case, precision):
     zo, zx = ops.penultimate_sorted_oracle(coords, values, rows, f, mode, R,
                                            X, precision=precision)
     torch.cuda.synchronize()
-    assert (kron_segsum.launches, kron_segsum_oracle.launches) == (
-        counts[0] + 2, counts[1] + 1)
+    assert (kron_segsum.launches, kron_segsum_oracle.launches,
+            kron_segsum_gather2.launches) == (
+        counts[0] + 2, counts[1] + 1,
+        counts[2] + (3 if len(shape) == 4 else 0))
     a, b = ops._split_ab(coords, values, f, mode)
     want_z = kron_segsum(rows, a, b, R, precision=precision)
     want_zo, want_zx = kron_segsum_oracle(rows, a, b, R, X,
@@ -303,6 +315,55 @@ def test_kron_segsum_gather_bitwise_row_form(cuda, case, precision):
     assert torch.equal(zo, z) and torch.equal(zo, want_zo)
     assert torch.equal(zx, want_zx)
     assert _rel_err(z, ref.kron_segsum_ref(rows, a, b, R, precision)) <= 2e-4
+
+
+@pytest.mark.parametrize("core", [(3, 4, 2, 5), (2, 3, 5, 3), (5, 5, 7, 6),
+                                  (4, 3, 2, 9), (3, 5, 2, 20),
+                                  (20, 10, 3, 10)],
+                         ids=["narrow_last", "odd_widths", "last_6_7",
+                              "odd_last_9", "wide_last_two_groups",
+                              "two_pair_tiles"])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_two_lead_walk_widths_bitwise_fold(cuda, core, precision):
+    """The two-lead walk at widths other than K = 10 (narrow last factors
+    that leave block columns unused, odd widths that stage by single
+    floats, a last factor wider than one block, more than one pair tile):
+    Z and (Z, ZX) bitwise the fold form's, every mode."""
+    shape = (60, 50, 40, 30)
+    for mode in range(4):
+        coords, values, rows, f = _gather_inputs(11 + mode, shape, core, mode,
+                                                 cuda, pad=500)
+        R = shape[mode]
+        a, b = ops._split_ab(coords, values, f, mode)
+        X = torch.randn((a.shape[1] * b.shape[1], 5),
+                        generator=torch.Generator().manual_seed(mode)).to(cuda)
+        before = kron_segsum_gather2.launches
+        z = ops.penultimate_sorted(coords, values, rows, f, mode, R,
+                                   precision=precision)
+        zo, zx = ops.penultimate_sorted_oracle(coords, values, rows, f, mode,
+                                               R, X, precision=precision)
+        torch.cuda.synchronize()
+        assert kron_segsum_gather2.launches == before + 2
+        assert torch.equal(z, kron_segsum(rows, a, b, R, precision=precision))
+        want_zo, want_zx = kron_segsum_oracle(rows, a, b, R, X,
+                                              precision=precision)
+        assert torch.equal(zo, want_zo) and torch.equal(zx, want_zx)
+
+
+@pytest.mark.parametrize("N", [3, 4, 5])
+def test_row_order_bitwise_indexing(cuda, N):
+    """The unsorted build's reorder on the card (whole rows at N = 3,
+    column by column from N = 4) gives indexing's bits."""
+    g = torch.Generator().manual_seed(N)
+    E = 300_001
+    coords = torch.randint(0, 1 << 30, (E, N), generator=g,
+                           dtype=torch.int32).to(cuda)
+    values = torch.randn(E, generator=g).to(cuda)
+    local_rows = torch.randint(0, 1000, (E,), generator=g).to(cuda)
+    order = torch.argsort(local_rows, stable=True)
+    c, v, rows = ops._row_order(coords, values, local_rows)
+    assert torch.equal(c, coords[order]) and torch.equal(v, values[order])
+    assert torch.equal(rows, local_rows[order]) and c.is_contiguous()
 
 
 @pytest.mark.parametrize("P,R,K,s", [(4, 7206, 100, 8), (4, 3024, 100, 1),

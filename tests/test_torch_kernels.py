@@ -411,15 +411,21 @@ def _gather_case(seed, shape, core, mode, pad=0):
 
 
 def _gather_port(coords, values, rows, tf, mode, R, precision):
-    """The port's gather form as ``ops`` calls it: both factors gathered at
-    N = 3, the leading levels folded into ``a`` at N >= 4."""
-    from repro_torch.kernels.kron_segsum import kron_segsum_gather
+    """The port's gather form as ``ops`` calls it: every factor gathered at
+    N = 3 and N = 4 (two leading factors), the leading levels folded into
+    ``a`` at N >= 5."""
+    from repro_torch.kernels.kron_segsum import (kron_segsum_gather,
+                                                 kron_segsum_gather2)
 
     *lead, last = [j for j in range(len(tf)) if j != mode]
     tc, tv, tr = (torch.from_numpy(x) for x in (coords, values, rows))
     if len(lead) == 1:
         return kron_segsum_gather(tr, tc, tv, tf[lead[0]], tf[last], lead[0],
                                   last, R, precision=precision)
+    if len(lead) == 2:
+        j1, j2 = lead
+        return kron_segsum_gather2(tr, tc, tv, tf[j1], tf[j2], tf[last], j1,
+                                   j2, last, R, precision=precision)
     a = ops._lead_a(tc, tv, tf, lead)
     return kron_segsum_gather(tr, tc, None, a, tf[last], None, last, R,
                               precision=precision)
@@ -427,14 +433,15 @@ def _gather_port(coords, values, rows, tf, mode, R, precision):
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("N,mode", [(3, 0), (3, 1), (3, 2),
-                                    (4, 0), (4, 1), (4, 2), (4, 3)])
+                                    (4, 0), (4, 1), (4, 2), (4, 3),
+                                    (5, 0), (5, 1), (5, 2), (5, 3), (5, 4)])
 def test_kron_segsum_gather_matches_reference_split(N, mode, precision):
     """The gather form's plain version against the reference's
-    ``_split_ab`` and ``kron_segsum_ref``, every mode of 3- and 4-mode
-    tensors, f32 and the bf16 contract, within 1e-5 of the largest
-    output."""
-    shape = (9, 8, 7, 6)[:N]
-    core = (3, 4, 2, 5)[:N]
+    ``_split_ab`` and ``kron_segsum_ref``, every mode of 3-, 4- and 5-mode
+    tensors (two leading factors gathered at N = 4, the fold at N = 5),
+    f32 and the bf16 contract, within 1e-5 of the largest output."""
+    shape = (9, 8, 7, 6, 5)[:N]
+    core = (3, 4, 2, 5, 2)[:N]
     coords, values, rows, jf, tf = _gather_case(21 + mode, shape, core, mode)
     R = shape[mode]
     got = _gather_port(coords, values, rows, tf, mode, R, precision).numpy()
@@ -447,12 +454,12 @@ def test_kron_segsum_gather_matches_reference_split(N, mode, precision):
                                atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("N", [3, 4])
+@pytest.mark.parametrize("N", [3, 4, 5])
 def test_kron_segsum_gather_padding_adds_nothing(N):
     """Padding elements (value 0, coordinates 0) gather row 0 of each
     factor and add nothing: Z equals the unpadded reference's."""
-    shape = (9, 8, 7, 6)[:N]
-    core = (3, 3, 3, 3)[:N]
+    shape = (9, 8, 7, 6, 5)[:N]
+    core = (3, 3, 3, 3, 3)[:N]
     mode = 1
     coords, values, rows, jf, tf = _gather_case(5, shape, core, mode, pad=37)
     R = shape[mode]
