@@ -23,6 +23,11 @@ So its duplicates are the draws that fall on a coordinate already held:
 more of them than ``synth_tensor`` sums (it draws more in all), which makes
 the summed values of the hottest coordinates somewhat larger, and the
 tensor holds more of the distribution's tail than a one-batch draw would.
+
+Coordinates are sorted, told apart and summed by their keys
+(``tuckerbench.keys``): one int64 word, the linear index, below 2**63, and
+two words past it, so tensors such as FROSTT's nell-1 (an index space of
+1.6e20) can be drawn too.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import math
 import numpy as np
 import torch
 
+from tuckerbench import keys
+
 __all__ = ["draw_tensor", "MAX_ROUNDS"]
 
 MAX_ROUNDS = 40  # rounds of top-up draws before the generator gives up
@@ -39,13 +46,13 @@ MAX_ROUNDS = 40  # rounds of top-up draws before the generator gives up
 
 def _cdf(L: int, alpha: float, device) -> torch.Tensor:
     ranks = torch.arange(1, L + 1, dtype=torch.float64, device=device)
-    cdf = torch.cumsum(ranks ** (-float(alpha)), 0)
+    cdf = _prefix_sum(ranks ** (-float(alpha)))
     return cdf / cdf[-1]
 
 
 def _round(n: int, shape, cdfs, perms, hubs, hub_fraction, g, device
-           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``n`` draws: their linear coordinates (int64) and values (f64)."""
+           ) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """``n`` draws: their keys (``keys.words``) and values (f64)."""
     N = len(shape)
     cols = []
     for m in range(N):
@@ -61,9 +68,7 @@ def _round(n: int, shape, cdfs, perms, hubs, hub_fraction, g, device
         pick = torch.randperm(n, generator=g, device=device)[:k]
         for m, slice_ in hubs.items():
             cols[m][pick] = slice_
-    key = cols[0]
-    for m in range(1, N):
-        key = key * shape[m] + cols[m]
+    key = keys.words(cols, shape)
     values = torch.randn(n, dtype=torch.float64, generator=g, device=device)
     return key, values
 
@@ -75,16 +80,16 @@ def draw_tensor(shape, nnz: int, alphas, hub_fraction: float = 0.0,
 
     Returns ``(coords, values)`` on the host: int64 ``(nnz, N)`` sorted by
     linear index, and float64 ``(nnz,)``. The same seed gives the same
-    arrays on the same kind of device.
+    arrays on the same kind of device. Refuses a shape whose keys need more
+    than two words.
     """
     shape = tuple(int(L) for L in shape)
     N = len(shape)
     if isinstance(alphas, (int, float)):
         alphas = (float(alphas),) * N
-    if math.prod(shape) >= 2 ** 63:
-        raise ValueError(f"shape {shape} overflows a 64-bit linear index")
     if nnz > math.prod(shape):
         raise ValueError(f"{nnz} distinct coordinates do not fit {shape}")
+    keys.groups(shape)  # refuses a shape past two words
     dev = torch.device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(int(seed) % (2 ** 63))
@@ -96,15 +101,20 @@ def draw_tensor(shape, nnz: int, alphas, hub_fraction: float = 0.0,
             hubs[int(m)] = int(torch.randint(0, shape[m], (1,), generator=g,
                                              device=dev))
 
-    keys, vals = [], []
+    rounds, vals = [], []
     n, held, drawn = int(nnz), 0, 0
     for _ in range(MAX_ROUNDS):
         k, v = _round(n, shape, cdfs, perms, hubs, hub_fraction, g, dev)
-        keys.append(k)
+        rounds.append(k)
         vals.append(v)
         drawn += n
         before = held
-        held = int(torch.unique(torch.cat(keys)).numel())
+        key = [torch.cat(w) for w in zip(*rounds)]
+        rounds = [key]
+        # sorted by key, equal keys in draw order; a key's first draw leads
+        order = keys.lex_order(key)
+        lead = keys.starts([w[order] for w in key])
+        held = int(lead.sum())
         if held >= nnz:
             break
         # the next round: what is missing over the share of new coordinates
@@ -114,38 +124,33 @@ def draw_tensor(shape, nnz: int, alphas, hub_fraction: float = 0.0,
     else:
         raise RuntimeError(f"{held} distinct coordinates after {drawn} "
                            f"draws, {nnz} asked for")
-    key = torch.cat(keys)
     value = torch.cat(vals)
-    del keys, vals
-    uniq, inv = torch.unique(key, sorted=True, return_inverse=True)
-    # the draw at which each coordinate first appeared; keep the draws up
-    # to the one that brought the nnz-th
-    first = torch.full((uniq.numel(),), key.numel(), dtype=torch.int64,
-                       device=dev)
-    first.scatter_reduce_(0, inv, torch.arange(key.numel(), device=dev),
-                          "amin")
-    last = int(torch.sort(first).values[nnz - 1])
-    del uniq, inv, first
-    key, value = key[:last + 1], value[:last + 1]
-    # sum the values of duplicates in a fixed order: sort by coordinate
-    # (stable, so draws keep their order), then segment sums by differences
-    # of one float64 prefix sum
-    order = torch.sort(key, stable=True).indices
-    key, value = key[order], value[order]
+    del rounds, vals
+    # keep the draws up to the one at which the nnz-th coordinate first
+    # appeared, still sorted by key and in draw order among equal keys
+    last = int(torch.sort(order[lead]).values[nnz - 1])
+    del lead
+    order = order[order <= last]
+    key = [w[order] for w in key]
+    value = value[order]
     del order
-    starts = torch.ones(key.numel(), dtype=torch.bool, device=dev)
-    starts[1:] = key[1:] != key[:-1]
-    head = torch.nonzero(starts).squeeze(1)
-    ends = torch.cat([head[1:], head.new_tensor([key.numel()])]) - 1
-    csum = torch.cumsum(value, 0)
+    head = torch.nonzero(keys.starts(key)).squeeze(1)
+    key = [w[head] for w in key]
+    if key[0].numel() != nnz:
+        raise AssertionError(f"kept {key[0].numel()} coordinates, not {nnz}")
+    # sum the values of duplicates in that fixed order: segment sums by
+    # differences of one float64 prefix sum
+    ends = torch.cat([head[1:], head.new_tensor([value.numel()])]) - 1
+    csum = _prefix_sum(value)
     sums = csum[ends] - torch.where(head > 0, csum[(head - 1).clamp_(min=0)],
                                     torch.zeros_like(csum[ends]))
-    key = key[head]
-    if key.numel() != nnz:
-        raise AssertionError(f"kept {key.numel()} coordinates, not {nnz}")
-    coords = torch.empty((nnz, N), dtype=torch.int64, device=dev)
-    rest = key
-    for m in range(N - 1, -1, -1):
-        coords[:, m] = rest % shape[m]
-        rest = rest // shape[m]
-    return coords.cpu().numpy(), sums.cpu().numpy()
+    return keys.unravel(key, shape).cpu().numpy(), sums.cpu().numpy()
+
+
+def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of ``x``, added in sequence on the host and
+    handed back on ``x``'s device, so that a seed gives the same tensor in
+    every run: the card's ``torch.cumsum`` combines its partial sums in an
+    order that changes from run to run (and with it a slice's CDF and the
+    summed values)."""
+    return torch.cumsum(x.cpu(), 0).to(x.device)

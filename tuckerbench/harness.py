@@ -245,7 +245,7 @@ def _check(spec: Spec, t, rec: dict, parts, seed: int, device,
     values = torch.from_numpy(np.asarray(t.values, np.float64)).to(device)
     numbers = {}
     if parts is not None:
-        key = ref_partition.linear_index(coords, shape)  # sorted: drawn so
+        key = ref_partition.key(coords, shape)  # sorted: drawn so
         numbers["partition_mismatch"] = sum(
             ref_partition.mismatches(ranks, key, values, shape, device)
             for ranks in parts)

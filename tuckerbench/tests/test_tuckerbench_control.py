@@ -12,8 +12,8 @@ import torch
 
 from _tiny import run_tiny
 
-CELLS = ["nell2.lite.p4", "nell2.hooi", "enron.hooi"]
-DIST = ["nell2.lite.p4"]
+CELLS = ["nell2.lite.p4", "nell2.hooi", "enron.hooi", "enron.lite.p4"]
+DIST = ["nell2.lite.p4", "enron.lite.p4"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -30,8 +30,9 @@ def test_the_lower_precision_control_is_not(cell):
     assert not res["correct"], res["checks"]
     failed = {k for k, c in res["checks"].items() if c["value"] > c["limit"]}
     # the program's bf16 Z-builds fail the step, the reference's bf16 core
-    # fails the core and the fit
-    assert {"step_deficit", "core_rel", "fit_gap"} <= failed, res["checks"]
+    # fails the core and the fit, where the cell compares it
+    want = {"step_deficit", "core_rel", "fit_gap"} & res["checks"].keys()
+    assert {"step_deficit", "core_rel"} <= want <= failed, res["checks"]
 
 
 def _step_unchanged(monkeypatch, cell):

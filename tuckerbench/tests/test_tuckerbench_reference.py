@@ -93,7 +93,7 @@ def test_partition_check_finds_every_fault(tensor):
 
     pl = plan(tensor, "lite", 4, core_dims=(10,) * 4, use_cache=False)
     coords = torch.from_numpy(tensor.coords)
-    key = partition.linear_index(coords, tensor.shape)
+    key = partition.key(coords, tensor.shape)
     vals = torch.from_numpy(tensor.values)
     ranks = [(mp.coords[p], mp.values[p], mp.e_per_rank[p])
              for mp in pl.parts for p in range(mp.P)]
@@ -108,3 +108,84 @@ def test_partition_check_finds_every_fault(tensor):
     v2[0] += 1.0  # a value altered
     r[2] = (c, v2, n)
     assert partition.mismatches(r, key, vals, tensor.shape, "cpu") == 1
+
+
+def test_below_2_63_the_key_is_the_linear_index(tensor):
+    (key,) = partition.key(torch.from_numpy(tensor.coords), tensor.shape)
+    want = np.ravel_multi_index(tuple(tensor.coords.T), tensor.shape)
+    assert np.array_equal(key.numpy(), want)
+
+
+NELL1 = (2902330, 2143368, 25495389)
+
+
+def _wrapped(c, shape):
+    """The one-word linear index in int64, wrapping past 2**63."""
+    k = torch.tensor(c[0], dtype=torch.int64)
+    for m in range(1, len(shape)):
+        k = k * shape[m] + c[m]
+    return int(k)
+
+
+def test_coordinates_a_wrapped_index_confuses_are_told_apart():
+    """Two nell-1 coordinates whose linear indices differ by exactly 2**64
+    share a wrapped one-word key; the check holds one for the other as a
+    mismatch."""
+    q, r = divmod(2 ** 64, NELL1[2])
+    a, b = (q // NELL1[1], q % NELL1[1], r), (0, 0, 0)
+    lin = lambda c: (c[0] * NELL1[1] + c[1]) * NELL1[2] + c[2]  # noqa: E731
+    assert lin(a) - lin(b) == 2 ** 64 and all(x < L for x, L in zip(a, NELL1))
+    assert _wrapped(a, NELL1) == _wrapped(b, NELL1)
+    want = torch.tensor([b, (1, 2, 3), (9, 9, 9)], dtype=torch.int64)
+    got = torch.tensor([a, (1, 2, 3), (9, 9, 9)], dtype=torch.int32)
+    vals = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64)
+    key = partition.key(want, NELL1)
+    assert len(key) == 2
+    assert partition.mismatches([(want, vals, 3)], key, vals, NELL1,
+                                "cpu") == 0
+    assert partition.mismatches([(got, vals, 3)], key, vals, NELL1,
+                                "cpu") > 0
+
+
+@pytest.fixture(scope="module")
+def nell1_plan():
+    """A Lite P = 4 plan of 20,000 elements at nell-1's shape."""
+    from repro_torch.core.coo import SparseTensor
+    from repro_torch.core.plan import plan
+    from tuckerbench import gen
+
+    c, v = gen.draw_tensor(NELL1, 20_000, (1.2, 1.2, 1.4), seed=8,
+                           device="cpu")
+    t = SparseTensor(c, v, NELL1)
+    pl = plan(t, "lite", 4, core_dims=(10, 10, 10), use_cache=False)
+    coords = torch.from_numpy(c)
+    return pl, partition.key(coords, NELL1), torch.from_numpy(v)
+
+
+def _ranks(mp):
+    return [(mp.coords[p], mp.values[p], mp.e_per_rank[p])
+            for p in range(mp.P)]
+
+
+def test_a_plan_past_2_63_reads_no_mismatch(nell1_plan):
+    pl, key, vals = nell1_plan
+    assert len(key) == 2
+    for mp in pl.parts:
+        assert partition.mismatches(_ranks(mp), key, vals, NELL1, "cpu") == 0
+
+
+@pytest.mark.parametrize("fault", ["moved", "doubled"])
+def test_a_fault_in_a_plan_past_2_63_reads_a_mismatch(nell1_plan, fault):
+    """One element's last-mode coordinate moved by one, or one element
+    held twice (in the place of another)."""
+    pl, key, vals = nell1_plan
+    mp = pl.parts[2]
+    r = _ranks(mp)
+    c, v, n = r[1]
+    c, v = np.array(c), np.array(v)
+    if fault == "moved":
+        c[3, 2] += 1 if c[3, 2] + 1 < NELL1[2] else -1
+    else:
+        c[4], v[4] = c[3], v[3]
+    r[1] = (c, v, n)
+    assert partition.mismatches(r, key, vals, NELL1, "cpu") > 0

@@ -16,7 +16,7 @@ import torch
 
 from _tiny import SEED, tiny_spec
 
-CELLS = ["nell2.lite.p4", "nell2.hooi", "enron.hooi"]
+CELLS = ["nell2.lite.p4", "nell2.hooi", "enron.hooi", "enron.lite.p4"]
 NEW = {"entry.call_setup_s", "entry.upload_mb", "sweep.finalize_s",
        "sweep.norm2_s", "engine.zbuild_ms", "graphs.replay_ms",
        "graphs.cut_ms"}
