@@ -1,8 +1,9 @@
 """Distribution schemes for sparse Tucker decomposition (paper §5–6).
 
-The port's own copy of the reference's host-side ``core/distribution.py``
-(pure numpy, unchanged apart from its docstring), so the port's plans are
-bit-identical to the reference's.
+The port's version of the reference's host-side ``core/distribution.py``
+(host numpy): it computes the reference's arrays by counting over bounded
+keys (``core/tally.py``) where the reference sorts, and
+``tests/test_torch_plan.py`` holds them bitwise equal to the reference's.
 
 A *policy* along mode n is a mapping ``pi_n: elements -> [0, P)`` represented as
 an int32 array of shape (nnz,). A *scheme* is a sequence of N policies (multi-
@@ -38,6 +39,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from . import tally
 from .coo import SparseTensor
 
 __all__ = [
@@ -112,45 +114,46 @@ def lite_policy(t: SparseTensor, mode: int, P: int) -> np.ndarray:
     L = t.shape[mode]
     limit = -(-nnz // P)  # ceil
 
-    sizes = t.slice_sizes(mode)  # (L,)
-    order = np.argsort(sizes, kind="stable")  # ascending slice ids
-    sorted_sizes = sizes[order]
+    sizes = tally.slice_sizes(t, mode)  # (L,)
+    order, sorted_sizes = tally.stable_order(sizes, nnz + 1)  # ascending
 
     # ---- stage 1: find the exit iteration t_hat (0-based over sorted slices)
     # Slice at sorted position j goes to rank j % P; violation when the rank's
     # running load + size > limit. Compute per-residue-class prefix loads.
     loads_before = np.zeros(L, dtype=np.int64)
     for r in range(min(P, L)):
-        cls = np.arange(r, L, P)
-        cs = np.cumsum(sorted_sizes[cls])
-        loads_before[cls[1:]] = cs[:-1]
+        cs = np.cumsum(sorted_sizes[r::P])  # positions r, r + P, ...
+        loads_before[r + P :: P] = cs[:-1]
     violation = loads_before + sorted_sizes > limit
-    viol_idx = np.nonzero(violation)[0]
+    viol_idx = np.flatnonzero(violation)
     t_hat = int(viol_idx[0]) if viol_idx.size else L  # first violating position
 
     owner_of_slice = np.full(L, -1, dtype=np.int64)
-    owner_of_slice[order[:t_hat]] = np.arange(t_hat) % P
+    for r in range(P):  # sorted position j < t_hat goes to rank j % P
+        owner_of_slice[order[r:t_hat:P]] = r
 
-    # rank loads at end of stage 1
-    stage1_loads = np.zeros(P, dtype=np.int64)
-    np.add.at(stage1_loads, np.arange(t_hat) % P, sorted_sizes[:t_hat])
+    # rank loads at end of stage 1: rank r took sorted positions r, r+P, ...
+    stage1_loads = np.array([sorted_sizes[r:t_hat:P].sum() for r in range(P)],
+                            dtype=np.int64)
 
-    # ---- element-level assignment
-    owners = np.empty(nnz, dtype=np.int32)
+    # ---- element-level assignment (stage-2 elements are -1 until below)
     slice_of_e = t.coords[:, mode]
-    stage1_mask = owner_of_slice[slice_of_e] >= 0
-    owners[stage1_mask] = owner_of_slice[slice_of_e[stage1_mask]]
+    owner_of_e = owner_of_slice[slice_of_e]
+    stage2_mask = owner_of_e < 0
+    owners = owner_of_e.astype(np.int32)
+    del owner_of_e
 
-    n_stage2 = int(nnz - stage1_mask.sum())
+    n_stage2 = int(stage2_mask.sum())
     if n_stage2:
         # Stage-2 elements, ordered by (sorted slice rank, element order):
         # concatenated stream cut into segments by remaining rank gaps in rank
         # order 0..P-1. Elements of each large slice land on contiguous ranks.
-        rank_of_slice = np.empty(L, dtype=np.int64)
-        rank_of_slice[order] = np.arange(L)
-        e_idx = np.nonzero(~stage1_mask)[0]
-        key = rank_of_slice[slice_of_e[e_idx]]
-        stream = e_idx[np.argsort(key, kind="stable")]  # element ids in stream order
+        # Stage-2 slices are the sorted positions t_hat..L-1.
+        stage2_rank = np.empty(L, dtype=np.int64)  # set for those alone
+        stage2_rank[order[t_hat:]] = np.arange(L - t_hat)
+        e_idx = np.flatnonzero(stage2_mask)
+        key = stage2_rank[slice_of_e[e_idx]]
+        stream = e_idx[tally.stable_order(key, L - t_hat)[0]]
         gaps = limit - stage1_loads  # (P,) >= 0
         cum = np.cumsum(gaps)
         # position i in stream -> first rank whose cumulative gap exceeds i
@@ -178,7 +181,7 @@ def coarse_policy(
                       element counts (Smith & Karypis [25] style).
     """
     L = t.shape[mode]
-    sizes = t.slice_sizes(mode)
+    sizes = tally.slice_sizes(t, mode)
     owner_of_slice = np.empty(L, dtype=np.int64)
     if strategy == "lpt":
         order = np.argsort(-sizes, kind="stable")
@@ -370,21 +373,9 @@ def row_owner_map(t: SparseTensor, policy: np.ndarray, mode: int, P: int) -> np.
 
     The owner of row l is chosen among the ranks sharing Slice_n^l — we pick
     the rank holding the most elements of the slice (minimizes the data that
-    rank must receive), breaking ties toward lower load. Empty slices get
-    round-robin owners (their factor rows are zero but still live somewhere).
+    rank must receive), breaking ties toward the highest rank. Empty slices
+    get round-robin owners (their factor rows are zero but still live
+    somewhere). Read from the (slice, rank) counts (``tally``); a copy,
+    since callers such as ``MetricsExtender`` update the map in place.
     """
-    L = t.shape[mode]
-    slc = t.coords[:, mode].astype(np.int64)
-    pair = slc * P + policy  # (slice, rank) key
-    uniq, counts = np.unique(pair, return_counts=True)
-    u_slice = uniq // P
-    u_rank = (uniq % P).astype(np.int64)
-    owner = np.full(L, -1, dtype=np.int64)
-    # argmax count per slice: sort by (slice, count) and keep the last per slice
-    order = np.lexsort((counts, u_slice))
-    sl_sorted = u_slice[order]
-    is_last = np.r_[sl_sorted[1:] != sl_sorted[:-1], np.ones(1, dtype=bool)] if len(order) else np.zeros(0, dtype=bool)
-    owner[sl_sorted[is_last]] = u_rank[order][is_last]
-    empty = owner < 0
-    owner[empty] = np.arange(int(empty.sum())) % P
-    return owner
+    return tally.row_owner(t, policy, mode, P).copy()

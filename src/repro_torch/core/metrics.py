@@ -11,9 +11,12 @@ normalized SVD redundancy, oracle communication volume Q_n*(R_sum - L_n),
 factor-matrix transfer volume (uni- and multi-policy), FLOP counts and the
 memory model of §7.3.
 
-The port's own copy of the reference's ``core/metrics.py`` (pure numpy),
-with the streaming ``MetricsExtender``, which keeps the metrics of a
-repartitioned stream up to date in O(batch).
+The port's version of the reference's ``core/metrics.py`` (host numpy): it
+computes the reference's metrics by counting (slice, rank) pairs over their
+bounded range (``core/tally.py``) where the reference sorts them, and
+``tests/test_torch_plan.py`` holds them equal to the reference's. With the
+streaming ``MetricsExtender``, which keeps the metrics of a repartitioned
+stream up to date in O(batch).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Sequence
 
 import numpy as np
 
+from . import tally
 from .coo import SparseTensor
 from .distribution import Scheme, row_owner_map
 
@@ -109,16 +113,17 @@ class SchemeMetrics:
 
 def _r_per_rank(t: SparseTensor, policy: np.ndarray, mode: int, P: int) -> np.ndarray:
     """R_n^p for all p: number of distinct slices each rank shares."""
-    pair = t.coords[:, mode].astype(np.int64) * P + policy
-    uniq = np.unique(pair)
-    ranks = (uniq % P).astype(np.int64)
-    return np.bincount(ranks, minlength=P)
+    return np.array([np.count_nonzero(c)
+                     for c in tally.pair_counts(t, policy, mode, P)],
+                    dtype=np.int64)
 
 
 def mode_metrics(t: SparseTensor, policy: np.ndarray, mode: int, P: int) -> ModeMetrics:
-    counts = np.bincount(policy, minlength=P)
-    r = _r_per_rank(t, policy, mode, P)
-    L_ne = int((t.slice_sizes(mode) > 0).sum())
+    with tally.scope(t):  # one pair count for both
+        counts = tally.pair_counts(t, policy, mode, P).sum(axis=1,
+                                                           dtype=np.int64)
+        r = _r_per_rank(t, policy, mode, P)
+        L_ne = int((tally.slice_sizes(t, mode) > 0).sum())
     return ModeMetrics(
         mode=mode,
         P=P,
@@ -144,21 +149,27 @@ def _fm_volume(t: SparseTensor, scheme: Scheme, core: Sequence[int]) -> int:
     """
     total = 0
     N = t.ndim
+    P = scheme.P
     for n in range(N):
         L = t.shape[n]
-        slc = t.coords[:, n].astype(np.int64)
-        need_pairs = []
+        # need[p, l]: rank p holds an element of slice l under some pi_j
+        need = np.zeros((P, L), dtype=bool)
+        flat = need.reshape(-1)
+        done: set[int] = set()
         for j in range(N):
-            if j == n:
+            pol = scheme.policy(j)
+            if j == n or id(pol) in done:
                 continue
-            need_pairs.append(slc * scheme.P + scheme.policy(j))
-        pairs = np.unique(np.concatenate(need_pairs))
+            done.add(id(pol))
+            key = np.multiply(pol, L, dtype=np.int64)
+            key += t.coords[:, n]
+            flat[key] = True
+            del key
         # subtract one per slice for the producing owner if it is a needer
-        sigma = row_owner_map(t, scheme.policy(n), n, scheme.P)
-        slices_in_pairs = (pairs // scheme.P).astype(np.int64)
-        ranks_in_pairs = (pairs % scheme.P).astype(np.int64)
-        owner_hit = sigma[slices_in_pairs] == ranks_in_pairs
-        rows_to_send = len(pairs) - int(owner_hit.sum())
+        sigma = tally.row_owner(t, scheme.policy(n), n, P)
+        owner_hit = sum(np.count_nonzero(need[p] & (sigma == p))
+                        for p in range(P))
+        rows_to_send = np.count_nonzero(need) - owner_hit
         total += rows_to_send * int(core[n])
     return total
 
@@ -178,9 +189,11 @@ def scheme_metrics(
     core = tuple(int(k) for k in core)
     if lanczos_queries is None:
         lanczos_queries = [4 * core[n] for n in range(N)]
-    per_mode = tuple(
-        mode_metrics(t, scheme.policy(n), n, scheme.P) for n in range(N)
-    )
+    with tally.scope(t):  # the owner maps of the modes, for _fm_volume
+        per_mode = tuple(
+            mode_metrics(t, scheme.policy(n), n, scheme.P) for n in range(N)
+        )
+        fm_vol = _fm_volume(t, scheme, core)
     khat = [int(np.prod([core[j] for j in range(N) if j != n])) for n in range(N)]
 
     # FLOPs (multiply-accumulate counted as 2 flops)
@@ -200,7 +213,6 @@ def scheme_metrics(
         int(lanczos_queries[n]) * per_mode[n].oracle_comm_per_query()
         for n in range(N)
     )
-    fm_vol = _fm_volume(t, scheme, core)
     return SchemeMetrics(
         scheme=scheme.name,
         P=scheme.P,

@@ -40,6 +40,7 @@ import numpy as np
 
 from repro_torch import tracing
 
+from . import tally
 from .calibrate import current_cost_model, current_cost_model_state
 from .coo import SparseTensor
 from .distribution import Scheme, build_scheme, row_owner_map
@@ -413,11 +414,13 @@ def _build_plan(
     from repro_torch.distributed.partition import make_mode_partitions
 
     t0 = time.perf_counter()
-    with _part(parts_s, "partition"):
-        parts = make_mode_partitions(t, scheme, pad_geometric=pad_geometric)
-    with _part(parts_s, "metrics"):
-        if metrics is None:
-            metrics = scheme_metrics(t, scheme, core_dims)
+    with tally.scope(t):  # the scheme's tallies, where it was built here
+        with _part(parts_s, "partition"):
+            parts = make_mode_partitions(t, scheme,
+                                         pad_geometric=pad_geometric)
+        with _part(parts_s, "metrics"):
+            if metrics is None:
+                metrics = scheme_metrics(t, scheme, core_dims)
     with _part(parts_s, "cost"):
         cost = _plan_cost(parts, metrics, core_dims, path, model,
                           objective=objective)
@@ -542,11 +545,13 @@ def plan(
         return _cached(key, use_cache, make_auto)
 
     def make() -> PartitionPlan:
-        with _part(parts_s, "scheme"):
-            s = build_scheme(t, name, P, seed=seed, **scheme_kw)
-        return _build_plan(t, s, core, path, parts_s["scheme"], key,
-                           model, pad_geometric, objective=obj,
-                           parts_s=parts_s)
+        # slice sizes and pair counts made once for scheme, parts, metrics
+        with tally.scope(t):
+            with _part(parts_s, "scheme"):
+                s = build_scheme(t, name, P, seed=seed, **scheme_kw)
+            return _build_plan(t, s, core, path, parts_s["scheme"], key,
+                               model, pad_geometric, objective=obj,
+                               parts_s=parts_s)
 
     return _cached(key, use_cache, make)
 

@@ -1,9 +1,11 @@
 """Scheme -> padded per-rank arrays (the SPMD runtime's view of a policy).
 
-The port's own copy of the reference's ``distributed/partition.py`` (pure
-numpy, unchanged apart from this paragraph), so the port's partitions are
-bit-identical to the reference's. The port stacks the P ranks along a
-leading dimension on one device; the arrays below already have that shape.
+The port's version of the reference's ``distributed/partition.py`` (host
+numpy): it computes the reference's arrays by counting and by one ordering
+of the elements per mode (``core/tally.py``) where the reference sorts each
+rank apart, and ``tests/test_torch_plan.py`` holds them bitwise equal to
+the reference's. The port stacks the P ranks along a leading dimension on
+one device; the arrays below already have that shape.
 
 The paper's runtime hands each MPI rank a ragged list of elements. SPMD
 hardware wants identical static shapes everywhere, so load imbalance
@@ -24,8 +26,9 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core import tally
 from repro_torch.core.coo import SparseTensor
-from repro_torch.core.distribution import Scheme, row_owner_map
+from repro_torch.core.distribution import Scheme
 
 __all__ = [
     "ModePartition",
@@ -104,36 +107,36 @@ def make_mode_partition(
     P = scheme.P
     N = t.ndim
     L = t.shape[mode]
-    policy = scheme.policy(mode).astype(np.int64)
-    sigma = row_owner_map(t, policy, mode, P)  # (L,) owner per global row
+    policy = scheme.policy(mode)
+    pairs = tally.pair_counts(t, policy, mode, P)  # (P, L) elements a rank
+    sigma = tally.row_owner(t, policy, mode, P)  # (L,) owner per global row
 
-    # ---- row relabeling: sort rows by (owner, gid) -> contiguous ownership
-    order = np.lexsort((np.arange(L), sigma))
+    # ---- row relabeling: contiguous ownership
     # devices own exactly ceil(L/P) consecutive new ids; pad L to P*Lp
     Lp = -(-L // P)
-    # new id of old row order[i] is i, BUT contiguity must respect quotas:
     # owner counts may differ from Lp; we re-balance by assigning overflow
     # rows of heavily-owning devices to the global tail. Simpler and exact:
     # give each device its sigma rows; devices with > Lp rows spill the
     # excess (empty-slice rows preferentially) to devices with < Lp.
-    sizes = t.slice_sizes(mode)
-    counts = np.bincount(sigma, minlength=P)
+    sizes = tally.slice_sizes(t, mode)
     new_gid = np.full(L, -1, dtype=np.int64)
-    spill: list[int] = []
+    spill: list[np.ndarray] = []
     next_free = np.zeros(P, dtype=np.int64)
     # prefer keeping non-empty rows with their sigma owner
     for p in range(P):
         rows_p = np.nonzero(sigma == p)[0]
         if len(rows_p) > Lp:
-            # spill empty rows first (no traffic impact), then smallest slices
-            keep_order = np.lexsort((rows_p, -sizes[rows_p]))
-            keep = rows_p[keep_order[:Lp]]
-            spill.extend(rows_p[keep_order[Lp:]].tolist())
-            rows_p = keep
+            # spill empty rows first (no traffic impact), then smallest
+            # slices: rows by size descending, ascending among equal sizes
+            s_p = sizes[rows_p]
+            top = int(s_p.max())
+            keep_order = tally.stable_order(top - s_p, top + 1)[0]
+            spill.append(rows_p[keep_order[Lp:]])
+            rows_p = rows_p[keep_order[:Lp]]
         new_gid[rows_p] = p * Lp + np.arange(len(rows_p))
         next_free[p] = len(rows_p)
     if spill:
-        spill_arr = np.asarray(spill, dtype=np.int64)
+        spill_arr = np.concatenate(spill)
         si = 0
         for p in range(P):
             free = Lp - next_free[p]
@@ -145,71 +148,68 @@ def make_mode_partition(
         assert si == len(spill_arr)
     assert (new_gid >= 0).all()
     row_perm = new_gid
-    inv_perm = np.zeros(P * Lp, dtype=np.int64)
-    inv_perm[:] = L  # sentinel for padded ids
+    inv_perm = np.full(P * Lp, L, dtype=np.int64)  # L: sentinel, padded ids
     inv_perm[row_perm] = np.arange(L)
-    inv_perm = inv_perm[: P * Lp]
-    owner_of_new = np.arange(P * Lp) // Lp
+    # the owner of new id g is g // Lp
 
-    # ---- per-device element lists, padded
-    e_per_rank = np.bincount(policy, minlength=P)
+    # ---- per-device element lists, padded: one stable ordering of all
+    # elements by (rank, new gid) => each rank's elements in order of their
+    # dense local row (kernel req), equal rows in element order
+    e_per_rank = pairs.sum(axis=1, dtype=np.int64)
+    r_per_rank = np.array([np.count_nonzero(c) for c in pairs], dtype=np.int64)
     E_pad = quant(int(e_per_rank.max()))
+    R_pad = quant(int(r_per_rank.max()))
     coords = np.zeros((P, E_pad, N), dtype=np.int32)
     values = np.zeros((P, E_pad), dtype=np.float32)
     local_rows = np.zeros((P, E_pad), dtype=np.int32)
-    row_gid_l: list[np.ndarray] = []
-    r_per_rank = np.zeros(P, dtype=np.int64)
-
-    elem_new_gid = row_perm[t.coords[:, mode]]
-    for p in range(P):
-        idx = np.nonzero(policy == p)[0]
-        k = len(idx)
-        # sort by new gid => local dense renumbering is monotone (kernel req)
-        sub = idx[np.argsort(elem_new_gid[idx], kind="stable")]
-        gids, lrows = np.unique(elem_new_gid[sub], return_inverse=True)
-        coords[p, :k] = t.coords[sub]
-        values[p, :k] = t.values[sub]
-        local_rows[p, :k] = lrows
-        r_per_rank[p] = len(gids)
-        row_gid_l.append(gids)
-    R_pad = quant(int(r_per_rank.max()))
-    # padding elements -> last local row with value 0 (kernel-safe)
-    for p in range(P):
-        k = int(e_per_rank[p])
-        if k < E_pad:
-            local_rows[p, k:] = max(int(r_per_rank[p]) - 1, 0)
-
     L_sent = P * Lp  # out-of-range gid sentinel
     row_gid = np.full((P, R_pad), L_sent, dtype=np.int32)
-    row_owned = np.zeros((P, R_pad), dtype=bool)
-    for p in range(P):
-        g = row_gid_l[p]
-        row_gid[p, : len(g)] = g
-        row_owned[p, : len(g)] = owner_of_new[g] == p
 
-    # ---- boundary (foreign) rows: local rows owned elsewhere
-    bnd_pairs = []  # (device, local_row_idx, new_gid)
+    key = np.multiply(policy, L_sent, dtype=np.int64)
+    key += row_perm[t.coords[:, mode]]
+    order, key = tally.stable_order(key, P * L_sent)
+    # first element of each distinct (rank, row): its running count less
+    # one within the rank is the element's dense local row
+    first = np.empty(len(key), dtype=bool)
+    first[:1] = True
+    np.not_equal(key[1:], key[:-1], out=first[1:])
+    rec = tally.records(t)
+    bounds = np.concatenate([[0], np.cumsum(e_per_rank)])
     for p in range(P):
-        foreign = np.nonzero(~row_owned[p] & (row_gid[p] < L_sent))[0]
-        for r in foreign:
-            bnd_pairs.append((p, int(r), int(row_gid[p, r])))
-    S = len(bnd_pairs)
+        a, b = int(bounds[p]), int(bounds[p + 1])
+        k = b - a
+        tally.take_records(rec, order[a:b], coords[p, :k], values[p, :k])
+        lrows = local_rows[p, :k]
+        np.cumsum(first[a:b], dtype=np.int32, out=lrows)
+        lrows -= 1
+        gids = key[a:b][first[a:b]] - p * L_sent
+        row_gid[p, : len(gids)] = gids
+        # padding elements -> last local row with value 0 (kernel-safe)
+        if k < E_pad:
+            local_rows[p, k:] = max(int(r_per_rank[p]) - 1, 0)
+    del order, key, first
+    row_owned = (row_gid < L_sent) & (row_gid // Lp == np.arange(P)[:, None])
+
+    # ---- boundary (foreign) rows: local rows owned elsewhere, as
+    # (device, local_row_idx) in that order; slot s is the s-th of them
+    fp, fr = np.nonzero(~row_owned & (row_gid < L_sent))
+    fg = row_gid[fp, fr].astype(np.int64)
+    S = len(fp)
     S_pad = quant(S)
     bnd_slot = np.full((P, R_pad), S_pad, dtype=np.int32)
-    for s, (p, r, g) in enumerate(bnd_pairs):
-        bnd_slot[p, r] = s
-    # owner side: for each slot, the owning device and the offset in its shard
-    own_lists: list[list[tuple[int, int]]] = [[] for _ in range(P)]
-    for s, (_p, _r, g) in enumerate(bnd_pairs):
-        op = int(owner_of_new[g])
-        own_lists[op].append((s, g - op * Lp))
-    B_pad = quant(max((len(x) for x in own_lists), default=0))
+    bnd_slot[fp, fr] = np.arange(S)
+    # owner side: for each slot, the owning device and the offset in its
+    # shard; each device's slots in slot order
+    op = fg // Lp
+    per_owner = np.bincount(op, minlength=P)
+    B_pad = quant(int(per_owner.max()))
     own_bnd_slot = np.full((P, B_pad), S_pad, dtype=np.int32)
     own_bnd_off = np.full((P, B_pad), Lp, dtype=np.int32)  # Lp = drop sentinel
-    for p in range(P):
-        for j, (s, off) in enumerate(own_lists[p]):
-            own_bnd_slot[p, j] = s
-            own_bnd_off[p, j] = off
+    slots = np.argsort(op, kind="stable")
+    op_s = op[slots]
+    j = np.arange(S) - np.concatenate([[0], np.cumsum(per_owner)])[op_s]
+    own_bnd_slot[op_s, j] = slots
+    own_bnd_off[op_s, j] = fg[slots] - op_s * Lp
 
     return ModePartition(
         mode=mode, P=P, L=L, N=N, E_pad=E_pad, R_pad=R_pad, Lp=Lp,
@@ -225,8 +225,10 @@ def make_mode_partitions(
     t: SparseTensor, scheme: Scheme, *, pad_geometric: bool = False
 ) -> tuple[ModePartition, ...]:
     """All N mode partitions for a scheme (the padded SPMD view of a plan)."""
-    return tuple(make_mode_partition(t, scheme, n, pad_geometric=pad_geometric)
-                 for n in range(t.ndim))
+    with tally.scope(t):  # one record array for every mode
+        return tuple(make_mode_partition(t, scheme, n,
+                                         pad_geometric=pad_geometric)
+                     for n in range(t.ndim))
 
 
 def comm_model(mp: ModePartition, khat: int, niter: int) -> dict:
