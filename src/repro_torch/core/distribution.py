@@ -27,7 +27,9 @@ Schemes implemented:
                    in ``repro_torch.core.plan``, and returns the
                    predicted-fastest one.
 
-All scheme constructors are host-side numpy.
+The scheme constructors work on the host, except the per-element passes of
+``lite`` and ``coarse`` (slice sizes, the element gathers, Lite's stage-2
+ordering and cut), which run on the plan's device (``core/tally.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import math
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from . import tally
 from .coo import SparseTensor
@@ -114,52 +117,55 @@ def lite_policy(t: SparseTensor, mode: int, P: int) -> np.ndarray:
     L = t.shape[mode]
     limit = -(-nnz // P)  # ceil
 
-    sizes = tally.slice_sizes(t, mode)  # (L,)
-    order, sorted_sizes = tally.stable_order(sizes, nnz + 1)  # ascending
+    with tally.scope(t):
+        sizes = tally.slice_sizes(t, mode)  # (L,)
+        order, sorted_sizes = tally.stable_order(sizes, nnz + 1)  # ascending
 
-    # ---- stage 1: find the exit iteration t_hat (0-based over sorted slices)
-    # Slice at sorted position j goes to rank j % P; violation when the rank's
-    # running load + size > limit. Compute per-residue-class prefix loads.
-    loads_before = np.zeros(L, dtype=np.int64)
-    for r in range(min(P, L)):
-        cs = np.cumsum(sorted_sizes[r::P])  # positions r, r + P, ...
-        loads_before[r + P :: P] = cs[:-1]
-    violation = loads_before + sorted_sizes > limit
-    viol_idx = np.flatnonzero(violation)
-    t_hat = int(viol_idx[0]) if viol_idx.size else L  # first violating position
+        # ---- stage 1: find the exit iteration t_hat (0-based over sorted
+        # slices). Slice at sorted position j goes to rank j % P; violation
+        # when the rank's running load + size > limit. Compute per-residue-
+        # class prefix loads.
+        loads_before = np.zeros(L, dtype=np.int64)
+        for r in range(min(P, L)):
+            cs = np.cumsum(sorted_sizes[r::P])  # positions r, r + P, ...
+            loads_before[r + P :: P] = cs[:-1]
+        violation = loads_before + sorted_sizes > limit
+        viol_idx = np.flatnonzero(violation)
+        t_hat = int(viol_idx[0]) if viol_idx.size else L  # first violating
 
-    owner_of_slice = np.full(L, -1, dtype=np.int64)
-    for r in range(P):  # sorted position j < t_hat goes to rank j % P
-        owner_of_slice[order[r:t_hat:P]] = r
+        # per slice: its rank if stage 1 placed it (sorted position j <
+        # t_hat goes to rank j % P), else -1 - its order among the stage-2
+        # slices (sorted positions t_hat..L-1)
+        table = np.empty(L, dtype=np.int32)
+        for r in range(P):
+            table[order[r:t_hat:P]] = r
+        table[order[t_hat:]] = -1 - np.arange(L - t_hat, dtype=np.int32)
+        # rank loads at end of stage 1: rank r took sorted positions r, r+P
+        stage1_loads = np.array([sorted_sizes[r:t_hat:P].sum()
+                                 for r in range(P)], dtype=np.int64)
 
-    # rank loads at end of stage 1: rank r took sorted positions r, r+P, ...
-    stage1_loads = np.array([sorted_sizes[r:t_hat:P].sum() for r in range(P)],
-                            dtype=np.int64)
-
-    # ---- element-level assignment (stage-2 elements are -1 until below)
-    slice_of_e = t.coords[:, mode]
-    owner_of_e = owner_of_slice[slice_of_e]
-    stage2_mask = owner_of_e < 0
-    owners = owner_of_e.astype(np.int32)
-    del owner_of_e
-
-    n_stage2 = int(stage2_mask.sum())
-    if n_stage2:
-        # Stage-2 elements, ordered by (sorted slice rank, element order):
-        # concatenated stream cut into segments by remaining rank gaps in rank
-        # order 0..P-1. Elements of each large slice land on contiguous ranks.
-        # Stage-2 slices are the sorted positions t_hat..L-1.
-        stage2_rank = np.empty(L, dtype=np.int64)  # set for those alone
-        stage2_rank[order[t_hat:]] = np.arange(L - t_hat)
-        e_idx = np.flatnonzero(stage2_mask)
-        key = stage2_rank[slice_of_e[e_idx]]
-        stream = e_idx[tally.stable_order(key, L - t_hat)[0]]
-        gaps = limit - stage1_loads  # (P,) >= 0
-        cum = np.cumsum(gaps)
-        # position i in stream -> first rank whose cumulative gap exceeds i
-        pos = np.arange(n_stage2)
-        owners[stream] = np.searchsorted(cum, pos, side="right").astype(np.int32)
-    return owners
+        # ---- element-level assignment, on the device (stage-2 elements
+        # hold their slice's negative entry until below)
+        owners = tally.upload(t, table, torch.int32).index_select(
+            0, tally.device_coords(t)[:, mode])
+        n_stage2 = nnz - int(stage1_loads.sum())
+        if n_stage2:
+            # Stage-2 elements, ordered by (sorted slice rank, element
+            # order): concatenated stream cut into segments by remaining
+            # rank gaps in rank order 0..P-1. Elements of each large slice
+            # land on contiguous ranks.
+            e_idx = torch.nonzero(owners < 0).flatten()
+            key = owners.index_select(0, e_idx).neg_()  # 1 + stage-2 order
+            stream = e_idx.index_select(0, torch.sort(key, stable=True)[1])
+            del e_idx, key
+            gaps = limit - stage1_loads  # (P,) >= 0
+            cum = tally.upload(t, np.cumsum(gaps), torch.int64)
+            # position i in stream -> first rank whose cumulative gap
+            # exceeds i
+            pos = torch.arange(n_stage2, device=owners.device)
+            owners.index_copy_(0, stream, torch.searchsorted(
+                cum, pos, right=True).to(torch.int32))
+        return tally.keep_policy(t, owners)
 
 
 # =========================================================================
@@ -209,7 +215,10 @@ def coarse_policy(
         owner_of_slice[order] = block_id
     else:
         raise ValueError(f"unknown coarse strategy {strategy!r}")
-    return owner_of_slice[t.coords[:, mode]].astype(np.int32)
+    with tally.scope(t):
+        table = tally.upload(t, owner_of_slice, torch.int32)
+        return tally.keep_policy(
+            t, table.index_select(0, tally.device_coords(t)[:, mode]))
 
 
 # =========================================================================
@@ -342,13 +351,16 @@ def build_scheme(
 
         return _plan(t, "auto", P, seed=seed, **kw).scheme
     if name == "lite":
-        pols = tuple(lite_policy(t, n, P) for n in range(t.ndim))
+        with tally.scope(t):  # one upload for every mode
+            pols = tuple(lite_policy(t, n, P) for n in range(t.ndim))
         return Scheme("lite", pols, uni=False, P=P)
     if name in ("coarse", "coarseg"):
-        pols = tuple(
-            coarse_policy(t, n, P, strategy=kw.get("strategy", "lpt"), seed=seed)
-            for n in range(t.ndim)
-        )
+        with tally.scope(t):
+            pols = tuple(
+                coarse_policy(t, n, P, strategy=kw.get("strategy", "lpt"),
+                              seed=seed)
+                for n in range(t.ndim)
+            )
         return Scheme("coarse", pols, uni=False, P=P)
     if name in ("medium", "mediumg"):
         pol, _ = medium_policies(t, P, seed=seed)

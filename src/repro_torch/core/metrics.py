@@ -11,9 +11,10 @@ normalized SVD redundancy, oracle communication volume Q_n*(R_sum - L_n),
 factor-matrix transfer volume (uni- and multi-policy), FLOP counts and the
 memory model of §7.3.
 
-The port's version of the reference's ``core/metrics.py`` (host numpy): it
-computes the reference's metrics by counting (slice, rank) pairs over their
-bounded range (``core/tally.py``) where the reference sorts them, and
+The port's version of the reference's ``core/metrics.py``: it computes the
+reference's metrics by counting (slice, rank) pairs over their bounded range
+where the reference sorts them, the counts and the factor-matrix volume's
+presence marks on the plan's device (``core/tally.py``), and
 ``tests/test_torch_plan.py`` holds them equal to the reference's. With the
 streaming ``MetricsExtender``, which keeps the metrics of a repartitioned
 stream up to date in O(batch).
@@ -25,6 +26,7 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from . import tally
 from .coo import SparseTensor
@@ -150,27 +152,31 @@ def _fm_volume(t: SparseTensor, scheme: Scheme, core: Sequence[int]) -> int:
     total = 0
     N = t.ndim
     P = scheme.P
-    for n in range(N):
-        L = t.shape[n]
-        # need[p, l]: rank p holds an element of slice l under some pi_j
-        need = np.zeros((P, L), dtype=bool)
-        flat = need.reshape(-1)
-        done: set[int] = set()
-        for j in range(N):
-            pol = scheme.policy(j)
-            if j == n or id(pol) in done:
-                continue
-            done.add(id(pol))
-            key = np.multiply(pol, L, dtype=np.int64)
-            key += t.coords[:, n]
-            flat[key] = True
-            del key
-        # subtract one per slice for the producing owner if it is a needer
-        sigma = tally.row_owner(t, scheme.policy(n), n, P)
-        owner_hit = sum(np.count_nonzero(need[p] & (sigma == p))
-                        for p in range(P))
-        rows_to_send = np.count_nonzero(need) - owner_hit
-        total += rows_to_send * int(core[n])
+    with tally.scope(t):
+        c = tally.device_coords(t)
+        for n in range(N):
+            L = t.shape[n]
+            kdt = tally.key_dtype(P * L)
+            # need[p, l]: rank p holds an element of slice l under some pi_j
+            need = torch.zeros(P * L, dtype=torch.bool, device=c.device)
+            done: set[int] = set()
+            for j in range(N):
+                pol = scheme.policy(j)
+                if j == n or id(pol) in done:
+                    continue
+                done.add(id(pol))
+                key = tally.device_policy(t, pol).to(kdt, copy=True)
+                key.mul_(L).add_(c[:, n])
+                need |= torch.bincount(key, minlength=P * L) > 0
+                del key
+            need = tally.to_host(t, need).reshape(P, L)
+            # subtract one per slice for the producing owner if it is a
+            # needer
+            sigma = tally.row_owner(t, scheme.policy(n), n, P)
+            owner_hit = sum(np.count_nonzero(need[p] & (sigma == p))
+                            for p in range(P))
+            rows_to_send = np.count_nonzero(need) - owner_hit
+            total += rows_to_send * int(core[n])
     return total
 
 
@@ -278,6 +284,9 @@ class MetricsExtender:
         self._fm_pairs: list[set] = []
         self._hit_flags = []
         self._fm_hits = []
+        with tally.scope(t):  # the owner maps' counts, one upload
+            owners = [row_owner_map(t, scheme.policy(n), n, P)
+                      for n in range(N)]
         for n in range(N):
             pol = np.asarray(scheme.policy(n))
             slc = coords[:, n].astype(np.int64)
@@ -290,7 +299,7 @@ class MetricsExtender:
             self._r_per_rank.append(
                 np.bincount((uniq % P).astype(np.int64), minlength=P)
                 .astype(np.int64))
-            self._owner.append(row_owner_map(t, pol, n, P))
+            self._owner.append(owners[n])
             snnz = np.bincount(slc, minlength=t.shape[n]).astype(np.int64)
             self._slice_nnz.append(snnz)
             self._L_ne.append(int((snnz > 0).sum()))

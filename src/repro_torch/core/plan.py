@@ -1,7 +1,8 @@
 """PartitionPlan: distribution plans and the real-time ``auto`` selector.
 
-The port's own copy of the reference's ``core/plan.py`` (pure numpy), limited
-to what the distributed main path uses:
+The port's own copy of the reference's ``core/plan.py``, limited to what the
+distributed main path uses. Its arrays are host numpy; a build's passes over
+the elements run in PyTorch on the plan's device (``core/tally.py``):
 
   * ``PartitionPlan`` bundles what host-side partitioning produces for one
     (tensor, scheme, P) triple: the ``Scheme``, the padded per-mode
@@ -408,13 +409,15 @@ def _build_plan(
     metrics: SchemeMetrics | None = None,
     *,
     parts_s: dict,
+    device=None,
 ) -> PartitionPlan:
     """The plan of ``scheme``; ``parts_s`` holds the seconds of the parts
     already built (fingerprint, scheme) and gets the rest."""
     from repro_torch.distributed.partition import make_mode_partitions
 
     t0 = time.perf_counter()
-    with tally.scope(t):  # the scheme's tallies, where it was built here
+    # the scheme's tallies and device copies, where it was built here
+    with tally.scope(t, device):
         with _part(parts_s, "partition"):
             parts = make_mode_partitions(t, scheme,
                                          pad_geometric=pad_geometric)
@@ -453,6 +456,7 @@ def plan(
     pad_geometric: bool = False,
     objective=None,
     metrics: SchemeMetrics | None = None,
+    device=None,
     **scheme_kw,
 ) -> PartitionPlan:
     """Single constructor for ``PartitionPlan``.
@@ -482,6 +486,12 @@ def plan(
     ``SchemeMetrics``, skipping the O(nnz·N²) recompute — the streaming
     scheduler maintains them incrementally across appends
     (``core.metrics.MetricsExtender``).
+
+    ``device`` is where the build's passes over the elements run
+    (``repro_torch.device.plan_device``: by default the card when there is
+    one, else the CPU). The plan is the same, bit for bit, on either, so it
+    is not part of the cache key; nothing the build puts on the device
+    outlives the call.
     """
     if path not in ("baseline", "liteopt", "auto"):
         raise ValueError(f"unknown path {path!r}")
@@ -514,7 +524,7 @@ def plan(
                        lambda: _build_plan(t, scheme, core, path, 0.0, key,
                                            model, pad_geometric,
                                            objective=obj, metrics=metrics,
-                                           parts_s=parts_s))
+                                           parts_s=parts_s, device=device))
     if metrics is not None:
         raise ValueError("prebuilt metrics are only valid with a prebuilt "
                          "Scheme — named schemes rebuild their policies, "
@@ -528,12 +538,13 @@ def plan(
     if name == "auto":
         def make_auto() -> PartitionPlan:
             t0 = time.perf_counter()
-            cands = {
-                c: plan(t, c, P, core_dims=core, path=path, seed=seed,
-                        use_cache=use_cache, pad_geometric=pad_geometric,
-                        objective=obj, **scheme_kw)
-                for c in AUTO_CANDIDATES
-            }
+            with tally.scope(t, device):  # one upload for the candidates
+                cands = {
+                    c: plan(t, c, P, core_dims=core, path=path, seed=seed,
+                            use_cache=use_cache, pad_geometric=pad_geometric,
+                            objective=obj, **scheme_kw)
+                    for c in AUTO_CANDIDATES
+                }
             best = min(cands, key=lambda c: cands[c].cost.total_s)
             return dataclasses.replace(
                 cands[best],
@@ -545,8 +556,9 @@ def plan(
         return _cached(key, use_cache, make_auto)
 
     def make() -> PartitionPlan:
-        # slice sizes and pair counts made once for scheme, parts, metrics
-        with tally.scope(t):
+        # the device copies, slice sizes and pair counts made once for
+        # scheme, parts, metrics
+        with tally.scope(t, device):
             with _part(parts_s, "scheme"):
                 s = build_scheme(t, name, P, seed=seed, **scheme_kw)
             return _build_plan(t, s, core, path, parts_s["scheme"], key,
@@ -572,8 +584,9 @@ def slice_owner_maps(pl: PartitionPlan, t: SparseTensor
         raise ValueError("owner maps need the snapshot the plan was built "
                          f"from (plan {pl.fingerprint[:12]}…, tensor "
                          f"{t.fingerprint()[:12]}…)")
-    return tuple(row_owner_map(t, pl.scheme.policy(n), n, pl.P)
-                 for n in range(pl.nmodes))
+    with tally.scope(t):  # one upload for every mode
+        return tuple(row_owner_map(t, pl.scheme.policy(n), n, pl.P)
+                     for n in range(pl.nmodes))
 
 
 def extend_scheme(scheme: Scheme, owner_maps: Sequence[np.ndarray],

@@ -4,6 +4,12 @@
 the CPU says so with ``device="cpu"``; the port never drops to the CPU on its
 own, because a run that silently left the card would report CPU numbers as
 if they were the card's.
+
+A plan's build is the one exception (``plan_device``): it counts on the card
+when there is one and on the CPU otherwise, unasked. Its result is host
+numpy arrays, made by integer counts, sorts and gathers and a float32 cast,
+so they are bitwise the same on either device and no number it reports
+depends on where it counted; only its host seconds do.
 """
 
 from __future__ import annotations
@@ -13,8 +19,8 @@ import functools
 
 import torch
 
-__all__ = ["resolve_device", "indexed_device", "full_precision_matmul",
-           "on_device", "on_own_device"]
+__all__ = ["resolve_device", "plan_device", "indexed_device",
+           "full_precision_matmul", "on_device", "on_own_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -27,6 +33,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+def plan_device(device: str | torch.device | None = None) -> torch.device:
+    """The device a plan's build counts on: ``device`` when given
+    (``resolve_device``), else the card when there is one, else the CPU."""
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return resolve_device(device)
 
 
 def indexed_device(device: str | torch.device) -> torch.device:

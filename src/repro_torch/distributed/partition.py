@@ -1,11 +1,15 @@
 """Scheme -> padded per-rank arrays (the SPMD runtime's view of a policy).
 
-The port's version of the reference's ``distributed/partition.py`` (host
-numpy): it computes the reference's arrays by counting and by one ordering
-of the elements per mode (``core/tally.py``) where the reference sorts each
-rank apart, and ``tests/test_torch_plan.py`` holds them bitwise equal to
-the reference's. The port stacks the P ranks along a leading dimension on
-one device; the arrays below already have that shape.
+The port's version of the reference's ``distributed/partition.py``: it
+computes the reference's host arrays by counting and by one ordering of the
+elements per mode where the reference sorts each rank apart, and
+``tests/test_torch_plan.py`` holds them bitwise equal to the reference's.
+The per-element passes (the key, its stable order, the local rows and the
+gather of each rank's records) run on the plan's device (``core/tally.py``)
+and are copied straight into the numpy arrays; the relabelling and the
+boundary slots are ``O(P * R_pad)`` host work. The port stacks the P ranks
+along a leading dimension on one device; the arrays below already have that
+shape.
 
 The paper's runtime hands each MPI rank a ragged list of elements. SPMD
 hardware wants identical static shapes everywhere, so load imbalance
@@ -25,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core import tally
 from repro_torch.core.coo import SparseTensor
@@ -103,6 +108,12 @@ def make_mode_partition(
     compiled-shape stability knob (see ``round_up_pow2``). Default off:
     one-shot decompositions keep the tight pads.
     """
+    with tally.scope(t):
+        return _mode_partition(t, scheme, mode, pad_geometric)
+
+
+def _mode_partition(t: SparseTensor, scheme: Scheme, mode: int,
+                    pad_geometric: bool) -> ModePartition:
     quant = round_up_pow2 if pad_geometric else (lambda x: max(int(x), 1))
     P = scheme.P
     N = t.ndim
@@ -165,29 +176,34 @@ def make_mode_partition(
     L_sent = P * Lp  # out-of-range gid sentinel
     row_gid = np.full((P, R_pad), L_sent, dtype=np.int32)
 
-    key = np.multiply(policy, L_sent, dtype=np.int64)
-    key += row_perm[t.coords[:, mode]]
-    order, key = tally.stable_order(key, P * L_sent)
+    c = tally.device_coords(t)
+    kdt = tally.key_dtype(P * L_sent)
+    key = tally.device_policy(t, policy).to(kdt, copy=True)
+    key.mul_(L_sent).add_(
+        tally.upload(t, row_perm, kdt).index_select(0, c[:, mode]))
+    key, order = torch.sort(key, stable=True)
     # first element of each distinct (rank, row): its running count less
     # one within the rank is the element's dense local row
-    first = np.empty(len(key), dtype=bool)
-    first[:1] = True
-    np.not_equal(key[1:], key[:-1], out=first[1:])
-    rec = tally.records(t)
+    first = torch.ones(len(key), dtype=torch.bool, device=key.device)
+    torch.ne(key[1:], key[:-1], out=first[1:])
+    gids = tally.to_host(t, key[first])  # the R_sum distinct keys, in order
+    del key
+    v = tally.device_values(t)
     bounds = np.concatenate([[0], np.cumsum(e_per_rank)])
+    rbounds = np.concatenate([[0], np.cumsum(r_per_rank)])
     for p in range(P):
         a, b = int(bounds[p]), int(bounds[p + 1])
         k = b - a
-        tally.take_records(rec, order[a:b], coords[p, :k], values[p, :k])
-        lrows = local_rows[p, :k]
-        np.cumsum(first[a:b], dtype=np.int32, out=lrows)
-        lrows -= 1
-        gids = key[a:b][first[a:b]] - p * L_sent
-        row_gid[p, : len(gids)] = gids
+        idx = order[a:b]
+        tally.download(t, coords[p, :k], c.index_select(0, idx))
+        tally.download(t, values[p, :k], v.index_select(0, idx))
+        tally.download(t, local_rows[p, :k],
+                       torch.cumsum(first[a:b], 0, dtype=torch.int32).sub_(1))
+        g = gids[rbounds[p]:rbounds[p + 1]] - p * L_sent
+        row_gid[p, : len(g)] = g
         # padding elements -> last local row with value 0 (kernel-safe)
         if k < E_pad:
             local_rows[p, k:] = max(int(r_per_rank[p]) - 1, 0)
-    del order, key, first
     row_owned = (row_gid < L_sent) & (row_gid // Lp == np.arange(P)[:, None])
 
     # ---- boundary (foreign) rows: local rows owned elsewhere, as
@@ -225,7 +241,7 @@ def make_mode_partitions(
     t: SparseTensor, scheme: Scheme, *, pad_geometric: bool = False
 ) -> tuple[ModePartition, ...]:
     """All N mode partitions for a scheme (the padded SPMD view of a plan)."""
-    with tally.scope(t):  # one record array for every mode
+    with tally.scope(t):  # one upload for every mode
         return tuple(make_mode_partition(t, scheme, n,
                                          pad_geometric=pad_geometric)
                      for n in range(t.ndim))

@@ -1506,3 +1506,89 @@ def test_capture_after_every_graph_of_the_home_died(cuda):
     assert got[1].step_captures == 3 and again[1].graph_replays == 6
     assert ex._home.pool != first and len(ex._home.graphs) >= 3
     assert _equal_runs(got, again)
+
+
+def _plan_fixture(name):
+    """The host layer's fixtures of ``tests/test_torch_plan.py``, drawn by
+    the port: (tensor, core dims, P)."""
+    from repro_torch.core.coo import SparseTensor
+
+    if name == "hub4":
+        return synth_tensor((20, 25, 60, 12), 3_000,
+                            alphas=(1.4, 1.4, 1.1, 0.8), hub_fraction=0.09,
+                            hub_modes=(0,), seed=5), (2, 2, 2, 2), 4
+    if name == "hypersparse":
+        return synth_tensor((40, 30, 200_000), 800, alphas=(1.0, 1.0, 1.4),
+                            seed=11), (3, 3, 3), 4
+    if name == "p7":
+        return synth_tensor((3, 200, 30), 700, alphas=(2.0, 0.5, 0.5),
+                            hub_fraction=0.3, hub_modes=(0,),
+                            seed=14), (3, 3, 3), 7
+    shape = (70_001, 70_003, 65_537, 65_539)  # past a 64-bit linear index
+    r = np.random.default_rng(63)
+    coords = np.stack([r.choice(r.integers(0, L, 40), 600) for L in shape],
+                      axis=1)
+    coords = np.unique(coords, axis=0)
+    return (SparseTensor(coords, r.standard_normal(len(coords)), shape),
+            (2, 2, 2, 2), 4)
+
+
+def _assert_same_arrays(got, want):
+    import dataclasses
+
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+        elif isinstance(b, tuple) and b and dataclasses.is_dataclass(b[0]):
+            for x, y in zip(a, b, strict=True):
+                _assert_same_arrays(x, y)
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("scheme", ["lite", "coarse", "medium"])
+@pytest.mark.parametrize("name", ["hub4", "hypersparse", "p7", "past_2_63"])
+def test_plan_on_card_bitwise_the_cpu_plan(cuda, name, scheme):
+    """The plan built on the card is the plan built on the CPU, array for
+    array; it leaves nothing allocated on the card; it uploads the
+    coordinates and values once, beside the O(L) tables (Lite's slice
+    table, int32, and its stage-2 cut, P int64, in a mode that has one;
+    CoarseG's owner map and each mode's relabelling, int64) and MediumG's
+    host-built policy."""
+    from repro_torch import tracing
+
+    t, core, P = _plan_fixture(name)
+    want = port_plan.plan(t, scheme, P, core_dims=core, use_cache=False,
+                          device="cpu")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tracing.clear()
+    try:
+        with tracing.recording():
+            got = port_plan.plan(t, scheme, P, core_dims=core,
+                                 use_cache=False, device=cuda)
+        counters = [e["counters"] for e in tracing.summary().values()]
+    finally:
+        tracing.clear()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    for a, b in zip(got.scheme.policies, want.scheme.policies, strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for mp, mp_want in zip(got.parts, want.parts, strict=True):
+        _assert_same_arrays(mp, mp_want)
+    _assert_same_arrays(got.metrics, want.metrics)
+    assert got.cost == want.cost
+    up = sum(c.get("plan.upload_bytes", 0) for c in counters)
+    down = sum(c.get("plan.download_bytes", 0) for c in counters)
+    tables = {"lite": 12, "coarse": 16, "medium": 8}[scheme] * sum(t.shape)
+    host_policy = 4 * t.nnz if scheme == "medium" else 0
+    extra = up - (t.coords.nbytes + t.values.nbytes + tables + host_policy)
+    if scheme == "lite":
+        assert extra % (8 * P) == 0 and 0 <= extra <= 8 * P * t.ndim, extra
+    else:
+        assert extra == 0
+    parts_bytes = sum(mp.coords[p, :k].nbytes + 2 * 4 * k
+                      for mp in got.parts
+                      for p, k in enumerate(mp.e_per_rank))
+    assert down > parts_bytes

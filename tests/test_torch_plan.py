@@ -2,8 +2,10 @@
 
 The port computes the reference's numpy host arrays (``core/distribution.py``,
 ``core/metrics.py``, ``core/plan.py``, ``distributed/partition.py``) by
-counting where the reference sorts (``core/tally.py``), so the same tensor
-and the same scheme must give exactly the same partitions: every
+counting where the reference sorts, its passes over the elements in PyTorch
+on the plan's device (``core/tally.py``; here the CPU, on the card the same
+code, ``tests/test_torch_cuda.py``), so the same tensor and the same scheme
+must give exactly the same partitions: every
 ``ModePartition`` array, every ``SchemeMetrics`` field and every modeled
 cost compare with ``np.array_equal``/``==``, for ``lite``, ``coarse`` and
 ``medium`` on the shared fixtures and on tensors shaped like the FROSTT
@@ -12,9 +14,11 @@ shape past a 64-bit linear index.
 """
 
 import dataclasses
+import weakref
 
 import numpy as np
 import pytest
+import torch
 from _hypothesis_compat import given, settings, st
 
 from repro.core import distribution as ref_distribution
@@ -22,7 +26,7 @@ from repro.core import metrics as ref_metrics
 from repro.core import plan as ref_plan
 from repro.core.coo import SparseTensor as RefSparseTensor
 from repro.data.tensors import synth_tensor
-from repro_torch import convert
+from repro_torch import convert, tracing
 from repro_torch.core import distribution, metrics, tally
 from repro_torch.core import plan as port_plan
 from repro_torch.core.distribution import build_scheme
@@ -218,6 +222,17 @@ def test_counting_replacements_match_what_they_replace(seed):
                             ref_metrics.mode_metrics(rt, pol, n, P))
         assert np.array_equal(distribution.lite_policy(t, n, P),
                               ref_distribution.lite_policy(rt, n, P))
+        # inside a scope the sizes are the host's bincount, and the device's
+        # stable sort of the partition's keys is numpy's stable argsort
+        with tally.scope(t, "cpu"):
+            sizes = tally.slice_sizes(t, n)
+        want_sizes = rt.slice_sizes(n)
+        assert sizes.dtype == want_sizes.dtype
+        assert np.array_equal(sizes, want_sizes)
+        pkey = pol.astype(np.int64) * shape[n] + coords[:, n]
+        got_order = torch.sort(torch.from_numpy(pkey.astype(np.int32)),
+                               stable=True)[1].numpy()
+        assert np.array_equal(got_order, np.argsort(pkey, kind="stable"))
     core = tuple(int(k) for k in r.integers(1, 4, N))
     assert metrics._fm_volume(t, distribution.Scheme("x", pols, False, P),
                               core) == ref_metrics._fm_volume(
@@ -236,3 +251,75 @@ def test_counting_replacements_match_what_they_replace(seed):
     for mp, mp_ref in zip(scoped.parts, bare.parts, strict=True):
         _assert_same_fields(mp, mp_ref)
     _assert_same_fields(scoped.metrics, bare.metrics)
+
+
+def _counters(name):
+    """The total of the counter ``name`` over the recorded spans, and
+    whether any span counted it."""
+    seen = [e["counters"][name] for e in tracing.summary().values()
+            if name in e["counters"]]
+    return sum(seen), bool(seen)
+
+
+@pytest.mark.parametrize("fixture", ["p7_tensor", "past_2_63_tensor"])
+def test_plan_on_the_cpu_moves_no_bytes(request, fixture, monkeypatch):
+    """On the CPU the plan's transfers are counted, as 0 bytes each way;
+    uploads in many small steps give the same plan as in one."""
+    t = _port(request.getfixturevalue(fixture))
+    core, P = CORE[fixture]
+    whole = port_plan.plan(t, "lite", P, core_dims=core, device="cpu",
+                           use_cache=False)
+    monkeypatch.setattr(tally, "_CHUNK_BYTES", 100)
+    tracing.clear()
+    try:
+        with tracing.recording():
+            pl = port_plan.plan(t, "lite", P, core_dims=core, device="cpu",
+                                use_cache=False)
+        up, up_seen = _counters("plan.upload_bytes")
+        down, down_seen = _counters("plan.download_bytes")
+        spans = tracing.summary()
+    finally:
+        tracing.clear()
+    assert up_seen and down_seen and up == 0 and down == 0
+    assert spans["plan.upload"]["parents"] == ["plan.partition", "plan.scheme"]
+    assert spans["plan.download"]["parents"] == [
+        "plan.metrics", "plan.partition", "plan.scheme"]
+    assert sorted(pl.build_parts_s) == sorted(whole.build_parts_s)
+    for a, b in zip(pl.scheme.policies, whole.scheme.policies, strict=True):
+        assert np.array_equal(a, b)
+    for mp, mp_whole in zip(pl.parts, whole.parts, strict=True):
+        _assert_same_fields(mp, mp_whole)
+    _assert_same_fields(pl.metrics, whole.metrics)
+
+
+def test_scope_leaves_no_device_copy(p7_tensor, monkeypatch):
+    """Every tensor a build uploads or builds a policy in is gone once its
+    scope ends: nothing but its own locals and the scope held them."""
+    t, (core, P) = _port(p7_tensor), CORE["p7_tensor"]
+    made = []
+    upload, keep = tally.upload, tally.keep_policy
+
+    def tracked_upload(*a, **kw):
+        out = upload(*a, **kw)
+        made.append(weakref.ref(out))
+        return out
+
+    def tracked_keep(t_, dev):
+        made.append(weakref.ref(dev))
+        return keep(t_, dev)
+
+    monkeypatch.setattr(tally, "upload", tracked_upload)
+    monkeypatch.setattr(tally, "keep_policy", tracked_keep)
+    with tally.scope(t, "cpu"):
+        s = build_scheme(t, "lite", P)
+        inside = tally.device_policy(t, s.policy(0))
+        assert inside is tally.device_policy(t, s.policy(0))
+        assert any(r() is inside for r in made)
+        del inside
+    assert made and all(r() is None for r in made)
+    made.clear()
+    port_plan.plan(t, "medium", P, core_dims=core, device="cpu",
+                   use_cache=False)
+    assert made and all(r() is None for r in made)
+    with pytest.raises(RuntimeError, match="no tally.scope"):
+        tally.device_coords(t)
