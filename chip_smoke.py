@@ -548,24 +548,16 @@ def z_passes_per_mode(shape, warm: str) -> list[int]:
     """Counted Z passes per mode of one single-process sweep at CORE with
     ``use_fused_oracle`` and no block or fused build: the knobs as ``hooi``
     settles them, counted by ``engine.oracle.count_z_passes``."""
-    from repro_torch.core.lanczos import effective_block_size, lanczos_niter
-    from repro_torch.core.sketch import (DEFAULT_POWER_ITERS,
-                                         sketch_block_size, sketch_niter)
-    from repro_torch.engine.oracle import choose_warm_start, count_z_passes
+    from repro_torch.core.sketch import DEFAULT_POWER_ITERS
+    from repro_torch.engine.oracle import ModeSpec, count_z_passes, mode_spec
 
     out = []
     for n, L in enumerate(shape):
-        k = CORE[n]
         khat = int(np.prod([CORE[j] for j in range(len(CORE)) if j != n]))
-        s = effective_block_size(k, L, khat, 1)
-        ws = choose_warm_start(warm, k, L, khat, s)
-        if ws == "sketch":
-            s = sketch_block_size(k, L, khat, 1)
-            niter = sketch_niter(k, L, khat, s)
-        else:
-            niter = lanczos_niter(k, L, khat, s)
-        out.append(count_z_passes(niter, warm_start=ws, power_iters=(
-            DEFAULT_POWER_ITERS if ws == "sketch" else 0)))
+        sp = mode_spec(ModeSpec(warm_start=warm), CORE[n], L, khat)
+        out.append(count_z_passes(sp.niter, warm_start=sp.warm_start,
+                                  power_iters=DEFAULT_POWER_ITERS
+                                  if sp.warm_start == "sketch" else 0))
     return out
 
 
@@ -1156,26 +1148,23 @@ def eager_and_cached_steps(ex, t, pl, path: str, warm_start: str) -> list:
     executor's cached step (captured on its first call), each
     ``fn(arrs, factors, key) -> (F, S)``."""
     from repro_torch.distributed.executor import _tally, step_spec
+    from repro_torch.engine.oracle import ModeSpec
     from repro_torch.engine.steps import make_mode_step_fn
 
-    specs = ex._mode_specs(pl, CORE, path, block_size=DIST_BLOCK,
-                           fused_zbuild=True, warm_start=warm_start)
+    specs = ex._mode_specs(pl, CORE, path, ModeSpec(
+        block_size=DIST_BLOCK, fused_zbuild=True, warm_start=warm_start,
+        use_fused=True))
     up = ex._get_upload(pl, t, _tally())
     out = []
     for mp, sp in zip(pl.parts, specs):
-        kw = dict(use_fused=True, precision=sp.precision,
-                  block_size=sp.block_size, fused_zbuild=sp.fused_zbuild,
-                  warm_start=sp.warm_start)
-        skey, step = ex._get_step(mp, sp.backend, sp.K_n, niter=sp.niter,
-                                  objective=sp.objective, **kw)
+        skey, step = ex._get_step(mp, sp)
 
         def cached(arrs, factors, key, skey=skey, step=step):
             return ex._call_step(skey, step, up, arrs, factors, key,
                                  _tally())
 
-        out.append((up.arrs[mp.mode],
-                    make_mode_step_fn(step_spec(mp, **kw), sp.backend,
-                                      sp.K_n, sp.niter), cached))
+        out.append((up.arrs[mp.mode], make_mode_step_fn(step_spec(mp, sp)),
+                    cached))
     return out
 
 
@@ -2012,11 +2001,12 @@ def unsharded_group_bytes(ex, pl, shape, path: str, knobs: dict) -> int:
     What a psum run moves, and what a boundary run moved before its
     u-space was sharded."""
     from repro_torch.core.sketch import DEFAULT_POWER_ITERS
+    from repro_torch.engine.oracle import ModeSpec
 
-    specs = ex._mode_specs(pl, CORE, path,
-                           block_size=knobs.get("lanczos_block", 1),
-                           fused_zbuild=knobs.get("fused_zbuild", False),
-                           warm_start=knobs.get("warm_start", "none"))
+    specs = ex._mode_specs(pl, CORE, path, ModeSpec(
+        block_size=knobs.get("lanczos_block", 1),
+        fused_zbuild=knobs.get("fused_zbuild", False),
+        warm_start=knobs.get("warm_start", "none")))
     G = ex.mesh.G
     q = DIST_P // G
     eff = [min(k, L) for k, L in zip(CORE, shape)]

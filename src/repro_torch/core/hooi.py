@@ -29,6 +29,7 @@ does (``engine.zbuild.resolve_precision``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Sequence
 
 import numpy as np
@@ -84,48 +85,17 @@ def hosvd_init(t: SparseTensor, core_dims: Sequence[int],
     return factors
 
 
-def _knobs(precision, lanczos_block, fused_zbuild, warm_start
-           ) -> tuple[str, int, bool, str]:
-    """Resolve the knobs through the engine's resolvers, which the
-    distributed executor uses too.
+def _local_specs(knobs, factors: Sequence[torch.Tensor], shape,
+                 lanczos_iters: int | None) -> list:
+    """Each mode's ``engine.oracle.mode_spec`` from the request ``knobs``:
+    ``K_n`` and ``K_hat`` from the factors' widths, the given
+    ``lanczos_iters`` as the reference's ``hooi`` takes it."""
+    from repro_torch.engine.oracle import mode_spec
 
-    Returns (Z-build precision, requested panel width, fused Z-build, warm
-    start).
-    """
-    from repro_torch.engine.oracle import (resolve_block_size,
-                                           resolve_warm_start)
-    from repro_torch.engine.zbuild import (resolve_fused_zbuild,
-                                           resolve_precision)
-
-    return (resolve_precision(precision), resolve_block_size(lanczos_block),
-            resolve_fused_zbuild(fused_zbuild),
-            resolve_warm_start(warm_start))
-
-
-def _mode_knobs(factors, n: int, L: int, block: int, fused_zbuild: bool,
-                warm_start: str, lanczos_iters: int | None) -> dict:
-    """One mode's panel width (clamped to its rank cap), warm start
-    (``"auto"`` settled), fused flag and iteration budget: the reference's
-    arithmetic, which ``_mode_specs`` of the distributed executor repeats."""
-    from repro_torch.core.lanczos import effective_block_size
-    from repro_torch.core.sketch import sketch_block_size
-    from repro_torch.engine.oracle import choose_warm_start
-
-    k_n = int(factors[n].shape[1])
-    khat = 1
-    for j, f in enumerate(factors):
-        if j != n:
-            khat *= int(f.shape[1])
-    s_eff = effective_block_size(k_n, L, khat, block)
-    ws_n = choose_warm_start(warm_start, k_n, L, khat, s_eff, fused_zbuild)
-    fz_n = fused_zbuild and ws_n != "sketch"
-    if ws_n == "sketch":
-        s_eff = sketch_block_size(k_n, L, khat, block)
-    niter = lanczos_iters
-    if niter is not None and (fz_n or s_eff > 1 or ws_n == "sketch"):
-        niter = -(-int(niter) // s_eff)  # vector budget -> block count
-    return dict(niter=niter, block_size=s_eff, fused_zbuild=fz_n,
-                warm_start=ws_n)
+    widths = [int(f.shape[1]) for f in factors]
+    return [mode_spec(knobs, widths[n], int(L),
+                      math.prod(widths[:n] + widths[n + 1:]), lanczos_iters)
+            for n, L in enumerate(shape)]
 
 
 def hooi_invocation(
@@ -149,24 +119,23 @@ def hooi_invocation(
     ``objective`` post-processes each mode's solve (``refine_factor``); as
     in the reference, this entry point applies no ``prepare_tensor`` view.
     """
+    from repro_torch.engine import steps
     from repro_torch.engine.objective import resolve_objective
-    from repro_torch.engine.steps import local_mode_step
+    from repro_torch.engine.oracle import resolve_knobs
 
     dev = resolve_device(device)
     full_precision_matmul()
-    prec, blk, fz, warm = _knobs(precision, lanczos_block, fused_zbuild,
-                                 warm_start)
     obj = None if objective is None else resolve_objective(objective)
+    knobs = resolve_knobs(precision, lanczos_block, fused_zbuild, warm_start,
+                          use_fused_oracle)
+    specs = _local_specs(knobs, factors, t.shape, lanczos_iters)
     new_factors = list(factors)
     with on_device(dev):  # the kernels launch on the current device
         coords, values = convert.device_coords(t, dev)
         for n in range(t.ndim):
-            new_factors[n] = local_mode_step(
+            new_factors[n] = steps.local_mode_step(
                 coords, values, new_factors, n, t.shape[n], key.fold_in(n),
-                use_fused_oracle=bool(use_fused_oracle), precision=prec,
-                timings=timings, objective=obj,
-                **_mode_knobs(new_factors, n, t.shape[n], blk, fz, warm,
-                              lanczos_iters))
+                specs[n], timings=timings, objective=obj)
     return new_factors
 
 
@@ -232,8 +201,9 @@ def hooi(
     ``draw`` replaces the default seeded draws (``repro_torch.random``);
     ``on_sweep(it, seconds, fit)`` observes every sweep.
     """
+    from repro_torch.engine import steps
     from repro_torch.engine.objective import resolve_objective
-    from repro_torch.engine.steps import local_mode_step
+    from repro_torch.engine.oracle import resolve_knobs
     from repro_torch.engine.sweep import run_hooi_sweeps
 
     dev = resolve_device(device)
@@ -241,11 +211,10 @@ def hooi(
     with tracing.span("hooi"), on_device(dev):
         with tracing.span("hooi.setup"):
             full_precision_matmul()
-            prec, blk, fz, warm = _knobs(precision, lanczos_block,
-                                         fused_zbuild, warm_start)
             obj = resolve_objective(objective)
+            knobs = resolve_knobs(precision, lanczos_block, fused_zbuild,
+                                  warm_start, use_fused_oracle, obj.name)
             t = obj.prepare_tensor(t)
-            fused = bool(use_fused_oracle)
 
             key = make_key(seed, draw)
             if isinstance(init, str):
@@ -263,6 +232,7 @@ def hooi(
                     raise ValueError(f"initial factors have shapes {got}, "
                                      f"expected "
                                      f"{tuple(zip(t.shape, core_dims))}")
+            specs = _local_specs(knobs, factors, t.shape, lanczos_iters)
 
             with tracing.span("hooi.upload"):
                 coords, values = convert.device_coords(t, dev)
@@ -270,11 +240,8 @@ def hooi(
                               coords.nbytes + values.nbytes)
 
         def mode_step(n, facs, kk):
-            return local_mode_step(coords, values, facs, n, t.shape[n], kk,
-                                   use_fused_oracle=fused, precision=prec,
-                                   objective=obj,
-                                   **_mode_knobs(facs, n, t.shape[n], blk, fz,
-                                                 warm, lanczos_iters))
+            return steps.local_mode_step(coords, values, facs, n, t.shape[n],
+                                         kk, specs[n], objective=obj)
 
         def report(it, seconds, fit):
             if verbose:

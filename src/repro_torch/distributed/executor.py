@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 import time
 import weakref
@@ -69,11 +70,9 @@ from repro_torch import convert, tracing
 from repro_torch.core.coo import SparseTensor
 from repro_torch.core.distribution import Scheme
 from repro_torch.core.hooi import Decomposition, random_factors
-from repro_torch.core.lanczos import effective_block_size, lanczos_niter
 from repro_torch.core.plan import (PartitionPlan, last_plan_call_cache_hit,
                                    plan as build_plan, plan_cache_stats)
-from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, sketch_block_size,
-                                     sketch_niter)
+from repro_torch.core.sketch import DEFAULT_POWER_ITERS
 from repro_torch.core.stochastic import (blend_factor, next_pow2,
                                          sample_batch, step_eta)
 from repro_torch.core.ttm import core_from_factors
@@ -86,13 +85,12 @@ from repro_torch.engine.comm import (backend_comm_bytes, comm_maps,
                                      crossing_slots, group_maps,
                                      resolve_backend)
 from repro_torch.engine.objective import resolve_objective
-from repro_torch.engine.oracle import (choose_warm_start, count_z_passes,
-                                       resolve_block_size, resolve_warm_start)
+from repro_torch.engine.oracle import (ModeSpec, count_z_passes, mode_spec,
+                                       resolve_knobs)
 from repro_torch.engine.steps import (make_mode_step_fn,
                                       make_stochastic_step_fn,
                                       make_zbuild_step_fn)
 from repro_torch.engine.sweep import run_hooi_sweeps
-from repro_torch.engine.zbuild import resolve_fused_zbuild, resolve_precision
 from repro_torch.graphs import CaptureHome, StepGraph
 from repro_torch.random import Draw, Key, make_key
 
@@ -247,22 +245,6 @@ class DistHooiStats:
     slo_met: bool | None = None
     lane: int | None = None
     spans: dict | None = None
-
-
-@dataclasses.dataclass(frozen=True)
-class _ModeSpec:
-    """Static per-mode step parameters ``run`` and ``profile_phases``
-    share, so a profiled step's signature is already seen by a later
-    run."""
-
-    backend: str
-    K_n: int
-    niter: int  # block iterations when the block driver runs
-    precision: str = "f32"
-    block_size: int = 1  # effective (clamped) Lanczos panel width
-    fused_zbuild: bool = False
-    objective: str = "tucker"
-    warm_start: str = "none"  # resolved per mode ("none" | "sketch")
 
 
 def _flat(arrs: dict):
@@ -426,15 +408,11 @@ def upload_mode(mp, dev: torch.device, put: Callable | None = None,
     return arrs
 
 
-def step_spec(mp, use_fused: bool = False, precision: str = "f32",
-              block_size: int = 1, fused_zbuild: bool = False,
-              warm_start: str = "none") -> dict:
+def step_spec(mp, spec: ModeSpec) -> dict:
     """The static spec ``make_mode_step_fn`` and ``make_zbuild_step_fn``
-    build one mode's step from."""
-    return dict(mode=mp.mode, R_pad=mp.R_pad, Lp=mp.Lp, P=mp.P,
-                use_fused=use_fused, precision=precision,
-                block_size=int(block_size), fused_zbuild=fused_zbuild,
-                warm_start=warm_start)
+    build one mode's step from: the partition's pads and the mode's
+    ``ModeSpec``."""
+    return dict(mode=mp.mode, R_pad=mp.R_pad, Lp=mp.Lp, P=mp.P, spec=spec)
 
 
 def _tally() -> dict:
@@ -537,54 +515,29 @@ class HooiExecutor:
         return pl, last_plan_call_cache_hit()
 
     def _mode_specs(self, pl: PartitionPlan, core_dims: Sequence[int],
-                    path: str, precision: str = "f32", block_size: int = 1,
-                    fused_zbuild: bool = False, objective: str = "tucker",
-                    warm_start: str = "none") -> list[_ModeSpec]:
-        """Per-mode static step parameters, the reference's arithmetic.
-
-        * ``backend``: ``path="auto"`` honors a plan costed with
-          ``path="auto"`` or compares the mode's analytic comm models; P=1
-          is ``local``.
-        * ``niter``: the shared Lanczos iteration count, clamped by the
-          true row count and the effective K_hat (factor widths
-          ``min(L_n, K_n)``) — the numbers the local path derives, so P=1
-          trajectories coincide. Block iterations under the block driver.
-        * ``block_size``: clamped per mode with ``effective_block_size``.
-        * ``warm_start``: ``"auto"`` settles per mode (``choose_warm_start``
-          on the geometry the local path sees, so P=1 parity holds). A
-          sketch mode runs the widened ``sketch_block_size`` panel, the
-          ``sketch_niter`` budget and never the fused build.
-        """
+                    path: str, knobs: ModeSpec) -> list[ModeSpec]:
+        """Per-mode step specs: ``engine.oracle.mode_spec`` of ``knobs``
+        (``resolve_knobs``) at ``K_n`` the core width and ``K_hat`` the
+        other modes' factor widths ``min(L_j, K_j)`` — the numbers the
+        local path derives, so P=1 trajectories coincide. The backend:
+        ``path="auto"`` honors a plan costed with ``path="auto"`` or
+        compares the mode's analytic comm models; P=1 is ``local``."""
         parts = pl.parts
-        eff = tuple(min(int(k), int(mp.L))
-                    for k, mp in zip(core_dims, parts))
+        eff = [min(int(k), int(mp.L)) for k, mp in zip(core_dims, parts)]
         recorded = None
         if path == "auto" and pl.cost.path == "auto" and self.P > 1 \
                 and len(pl.cost.mode_backends) == len(parts):
             recorded = pl.cost.mode_backends
         specs = []
         for n, mp in enumerate(parts):
-            K_n = int(core_dims[n])
-            khat = int(np.prod([eff[j] for j in range(len(eff)) if j != n]))
             if recorded is not None:
                 backend = resolve_backend(recorded[n], self.P)
             else:
                 backend = resolve_backend(
                     path, self.P, pl.comm(n) if path == "auto" else None)
-            s_eff = effective_block_size(K_n, int(mp.L), khat, block_size)
-            ws = choose_warm_start(warm_start, K_n, int(mp.L), khat, s_eff,
-                                   fused_zbuild)
-            fz_n = fused_zbuild and ws != "sketch"
-            if ws == "sketch":
-                s_eff = sketch_block_size(K_n, int(mp.L), khat, block_size)
-                niter = sketch_niter(K_n, int(mp.L), khat, s_eff)
-            else:
-                niter = lanczos_niter(K_n, int(mp.L), khat,
-                                      s_eff if (fz_n or s_eff > 1) else 1)
-            specs.append(_ModeSpec(
-                backend=backend, K_n=K_n, niter=niter, precision=precision,
-                block_size=s_eff, fused_zbuild=fz_n, objective=objective,
-                warm_start=ws))
+            specs.append(mode_spec(knobs, core_dims[n], mp.L,
+                                   math.prod(eff[:n] + eff[n + 1:]),
+                                   backend=backend))
         return specs
 
     # ------------------------------------------------------------- caches
@@ -592,19 +545,16 @@ class HooiExecutor:
         # the device decides the Z-build: the CUDA kernel on the card
         return "kern" if self.device.type == "cuda" else "ref"
 
-    def _step_key(self, mp, path: str, K_n: int, niter: int,
-                  use_fused: bool = False, precision: str = "f32",
-                  block_size: int = 1, fused_zbuild: bool = False,
-                  objective: str = "tucker",
-                  warm_start: str = "none") -> tuple:
+    def _step_key(self, mp, spec: ModeSpec) -> tuple:
         # the static signature of one mode step, the reference's: all that
         # shapes the step besides array shapes, so distinct variants never
         # share a step and the rerun contract holds per variant
-        return (path, self._kernel_label(),
-                "fused" if use_fused else "plain", mp.mode, mp.R_pad,
-                mp.Lp, mp.S_pad, self.P, K_n, niter, precision,
-                int(block_size), "fz" if fused_zbuild else "zb", objective,
-                warm_start, self.groups)
+        return (spec.backend, self._kernel_label(),
+                "fused" if spec.use_fused else "plain", mp.mode, mp.R_pad,
+                mp.Lp, mp.S_pad, self.P, spec.K_n, spec.niter,
+                spec.precision, spec.block_size,
+                "fz" if spec.fused_zbuild else "zb", spec.objective,
+                spec.warm_start, self.groups)
 
     def _cache_step(self, skey: tuple, make: Callable) -> Callable:
         with self._lock:
@@ -629,25 +579,14 @@ class HooiExecutor:
             for gkey in [g for g in up.graphs if g[0] == old]:
                 del up.graphs[gkey]
 
-    def _get_step(self, mp, path: str, K_n: int, niter: int | None = None,
-                  use_fused: bool = False, precision: str = "f32",
-                  block_size: int = 1, fused_zbuild: bool = False,
-                  objective: str = "tucker", warm_start: str = "none"):
-        niter = 2 * K_n if niter is None else int(niter)
-        skey = self._step_key(mp, path, K_n, niter, use_fused, precision,
-                              block_size, fused_zbuild, objective,
-                              warm_start)
-        ms = step_spec(mp, use_fused, precision, block_size, fused_zbuild,
-                       warm_start)
-        if path == "zbuild":
-            def make():
-                return make_zbuild_step_fn(ms, precision=precision,
-                                           mesh=self._spread)
-        else:
-            def make():
-                return make_mode_step_fn(ms, resolve_backend(path, self.P),
-                                         K_n, niter, mesh=self._spread)
-        return skey, self._cache_step(skey, make)
+    def _get_step(self, mp, spec: ModeSpec):
+        """The cached step of ``spec`` over ``mp``'s pads: a mode step, or
+        the Z-build alone for ``backend="zbuild"``."""
+        skey = self._step_key(mp, spec)
+        make = make_zbuild_step_fn if spec.backend == "zbuild" \
+            else make_mode_step_fn
+        return skey, self._cache_step(
+            skey, lambda: make(step_spec(mp, spec), mesh=self._spread))
 
     def _note_shapes(self, skey, shapes, tally: dict) -> None:
         # a compilation is the first call of a (step, shapes) signature —
@@ -830,23 +769,21 @@ class HooiExecutor:
         the mesh's groups by ``distributed.mesh.u_space_bytes``, for the
         modes that run the boundary backend (the knobs as ``run`` resolves
         them). Over one group: nothing."""
-        specs = self._mode_specs(
-            pl, core_dims, path, block_size=resolve_block_size(lanczos_block),
-            fused_zbuild=resolve_fused_zbuild(fused_zbuild),
-            warm_start=resolve_warm_start(warm_start))
+        specs = self._mode_specs(pl, core_dims, path, resolve_knobs(
+            lanczos_block=lanczos_block, fused_zbuild=fused_zbuild,
+            warm_start=warm_start))
         eff = [min(int(k), int(mp.L)) for k, mp in zip(core_dims, pl.parts)]
         out = {}
         for n, (mp, sp) in enumerate(zip(pl.parts, specs)):
             if self._spread is None or sp.backend != "boundary":
                 continue
             G = self._spread.G
-            khat = int(np.prod([e for j, e in enumerate(eff) if j != n]))
             sketch = sp.warm_start == "sketch"
             S_x = crossing_slots(group_maps(comm_maps(mp), mp.P, mp.R_pad,
                                             mp.Lp, G))
             out[n] = u_space_bytes(
-                self.P, G, S_x, khat, sp.K_n, sp.niter, sp.block_size,
-                blockish=sketch or sp.fused_zbuild or sp.block_size > 1,
+                self.P, G, S_x, math.prod(eff[:n] + eff[n + 1:]), sp.K_n,
+                sp.niter, sp.block_size, blockish=sp.block_driver,
                 seed_cols=min(sp.block_size, eff[n]) if sketch else 0,
                 power_iters=DEFAULT_POWER_ITERS if sketch else 0)
         return out
@@ -901,12 +838,10 @@ class HooiExecutor:
         pl, _ = self._plan(t, core_dims, scheme, path, plan_seed, False, obj)
         N = t.ndim
         parts = pl.parts
-        prec = resolve_precision(precision)
-        specs = self._mode_specs(
-            pl, core_dims, path, precision=prec,
-            block_size=resolve_block_size(lanczos_block),
-            fused_zbuild=resolve_fused_zbuild(fused_zbuild),
-            objective=obj.name, warm_start=resolve_warm_start(warm_start))
+        knobs = resolve_knobs(precision, lanczos_block, fused_zbuild,
+                              warm_start, use_fused_oracle, obj.name)
+        prec = knobs.precision
+        specs = self._mode_specs(pl, core_dims, path, knobs)
         up = self._get_upload(pl, t, tally)
         key = make_key(seed, draw)
         factors = random_factors(t.shape, core_dims, key, self.device)
@@ -925,13 +860,9 @@ class HooiExecutor:
         ttm_s = full_s = 0.0
         for n in range(N):
             sp = specs[n]
-            zkey, zstep = self._get_step(parts[n], "zbuild", sp.K_n,
-                                         precision=sp.precision)
-            skey, step = self._get_step(
-                parts[n], sp.backend, sp.K_n, niter=sp.niter,
-                use_fused=bool(use_fused_oracle), precision=sp.precision,
-                block_size=sp.block_size, fused_zbuild=sp.fused_zbuild,
-                objective=sp.objective, warm_start=sp.warm_start)
+            zkey, zstep = self._get_step(parts[n], ModeSpec(
+                backend="zbuild", K_n=sp.K_n, precision=sp.precision))
+            skey, step = self._get_step(parts[n], sp)
             kk = key.fold_in(7000 + n)
             # the signatures a run() on these shapes would note, so a later
             # run counts them as seen and its first sweep is not cold
@@ -1028,11 +959,8 @@ class HooiExecutor:
                 full_precision_matmul()
                 obj = resolve_objective(objective)
                 t = obj.prepare_tensor(t)
-                prec = resolve_precision(precision)
-                blk = resolve_block_size(lanczos_block)
-                fz = resolve_fused_zbuild(fused_zbuild)
-                warm = resolve_warm_start(warm_start)
-                fused = bool(use_fused_oracle)
+                knobs = resolve_knobs(precision, lanczos_block, fused_zbuild,
+                                      warm_start, use_fused_oracle, obj.name)
 
                 t_plan = time.perf_counter()
                 pl, cache_hit = self._plan(t, core_dims, scheme, path,
@@ -1047,16 +975,8 @@ class HooiExecutor:
                     factors = _coerce_factors(init_factors, t.shape,
                                               core_dims, key, dev)
                 parts = pl.parts
-                specs = self._mode_specs(pl, core_dims, path, precision=prec,
-                                         block_size=blk, fused_zbuild=fz,
-                                         objective=obj.name, warm_start=warm)
-                steps = [self._get_step(mp, sp.backend, sp.K_n,
-                                        niter=sp.niter, use_fused=fused,
-                                        precision=sp.precision,
-                                        block_size=sp.block_size,
-                                        fused_zbuild=sp.fused_zbuild,
-                                        objective=sp.objective,
-                                        warm_start=sp.warm_start)
+                specs = self._mode_specs(pl, core_dims, path, knobs)
+                steps = [self._get_step(mp, sp)
                          for mp, sp in zip(parts, specs)]
                 up = self._get_upload(pl, t, tally)
                 label = _backend_label(specs)
@@ -1100,7 +1020,7 @@ class HooiExecutor:
                         "warm": paid == cold["seen"],
                         "P": self.P, "path": path, "scheme": pl.name,
                         "kernel": on_card,
-                        "comm_backend": label, "precision": prec,
+                        "comm_backend": label, "precision": knobs.precision,
                         **self._labels(),
                     })
                 cold["seen"] = paid
@@ -1114,9 +1034,8 @@ class HooiExecutor:
                                         on_sweep=report, objective=obj,
                                         metrics_out=objective_metrics)
             moved = {k: v - moved[k] for k, v in self._moved_by_kind().items()}
-            with self._lock:
-                self._stats["runs"] += 1
-            stats = DistHooiStats(
+            stats = self._run_stats(
+                knobs, specs, tally, spectra, objective_metrics,
                 fits=fits, sweep_s=sweep_s,
                 comm={n: pl.comm(n) for n in range(N)},
                 r_pad={n: parts[n].R_pad for n in range(N)},
@@ -1127,30 +1046,11 @@ class HooiExecutor:
                 setup_s=setup_s,
                 plan_cache_hit=cache_hit,
                 plan_cache=plan_cache_stats(),
-                step_compilations=tally["step_compilations"],
-                step_cache_hits=tally["step_cache_hits"],
-                step_captures=tally["step_captures"],
-                graph_replays=tally["graph_replays"],
-                uploads=tally["uploads"],
-                upload_cache_hit=tally["upload_cache_hits"] > 0,
-                executor=self.stats(),
-                z_kernel={n: on_card for n in range(N)},
-                comm_backends={n: specs[n].backend for n in range(N)},
-                fused_oracle=fused,
-                precision=prec,
-                lanczos_block={n: specs[n].block_size for n in range(N)},
-                fused_zbuild=fz,
                 z_passes={n: count_z_passes(
-                    specs[n].niter, specs[n].fused_zbuild,
-                    warm_start=specs[n].warm_start,
+                    sp.niter, sp.fused_zbuild, warm_start=sp.warm_start,
                     power_iters=DEFAULT_POWER_ITERS
-                    if specs[n].warm_start == "sketch" else 0)
-                    for n in range(N)},
-                objective=obj.name,
-                objective_metrics=objective_metrics or None,
-                warm_start={n: specs[n].warm_start for n in range(N)},
-                mode_spectra={n: v.cpu().numpy() for n, v in spectra.items()}
-                or None,
+                    if sp.warm_start == "sketch" else 0)
+                    for n, sp in enumerate(specs)},
                 groups=self.groups,
                 group_bytes=sum(moved.values()),
                 group_bytes_u=moved["u"],
@@ -1160,22 +1060,52 @@ class HooiExecutor:
             stats.spans = tracing.summary(call=call)
         return dec, stats
 
+    def _run_stats(self, knobs: ModeSpec, specs: Sequence[ModeSpec],
+                   tally: dict, spectra: dict, objective_metrics: dict,
+                   **fields) -> DistHooiStats:
+        """What ``run`` and ``run_stochastic`` report alike: this call's
+        tally, the executor's counters with the call counted as a run, the
+        knobs and, per mode, what its spec ran; ``fields`` the rest."""
+        with self._lock:
+            self._stats["runs"] += 1
+        on_card = self.device.type == "cuda"
+        return DistHooiStats(
+            step_compilations=tally["step_compilations"],
+            step_cache_hits=tally["step_cache_hits"],
+            step_captures=tally["step_captures"],
+            graph_replays=tally["graph_replays"],
+            uploads=tally["uploads"],
+            upload_cache_hit=tally["upload_cache_hits"] > 0,
+            executor=self.stats(),
+            z_kernel={n: on_card for n in range(len(specs))},
+            comm_backends={n: sp.backend for n, sp in enumerate(specs)},
+            fused_oracle=knobs.use_fused,
+            precision=knobs.precision,
+            lanczos_block={n: sp.block_size for n, sp in enumerate(specs)},
+            fused_zbuild=knobs.fused_zbuild,
+            objective=knobs.objective,
+            objective_metrics=objective_metrics or None,
+            warm_start={n: sp.warm_start for n, sp in enumerate(specs)},
+            mode_spectra={n: v.cpu().numpy() for n, v in spectra.items()}
+            or None,
+            **fields)
+
     # ----------------------------------------------------- stochastic rung
-    def _get_stoch_step(self, mode: int, num_rows: int, K_n: int, niter: int,
-                        block_size: int, precision: str, objective: str,
+    def _get_stoch_step(self, mode: int, num_rows: int, spec: ModeSpec,
                         sample_fraction: float, sample_seed: int):
         """The minibatch step, in the same cache as the distributed steps;
         its key carries the sampling policy (a rerun of the same refine
         compiles nothing) and every static parameter, and the padded
         minibatch shape is counted by ``_note_shapes``."""
-        skey = ("stoch", int(mode), int(num_rows), int(K_n), int(niter),
-                int(block_size), precision, self._kernel_label(), objective,
-                float(sample_fraction), int(sample_seed))
+        skey = ("stoch", int(mode), int(num_rows), spec.K_n, spec.niter,
+                spec.block_size, spec.precision, self._kernel_label(),
+                spec.objective, float(sample_fraction), int(sample_seed))
 
         def make():
-            return make_stochastic_step_fn(int(mode), int(num_rows), int(K_n),
-                                           int(niter), int(block_size),
-                                           precision=precision)
+            return make_stochastic_step_fn(int(mode), int(num_rows),
+                                           spec.K_n, spec.niter,
+                                           spec.block_size,
+                                           precision=spec.precision)
 
         return skey, self._cache_step(skey, make)
 
@@ -1289,21 +1219,17 @@ class HooiExecutor:
                                     sample_fraction, sample_seed,
                                     replay_nnz, tally)
 
-        prec = resolve_precision(precision)
-        eff = tuple(min(int(k), int(L)) for k, L in zip(core_dims, t.shape))
+        # every mode runs the sketch at the panel it widens to from 1
+        knobs = resolve_knobs(precision, 1, False, "sketch",
+                              objective=obj.name)
+        eff = [min(int(k), int(L)) for k, L in zip(core_dims, t.shape)]
+        specs = [mode_spec(knobs, eff[n], t.shape[n],
+                           math.prod(eff[:n] + eff[n + 1:]))
+                 for n in range(N)]
         eta = step_eta(step_size, step_decay, step_index)
-        steps = []
-        lanczos_block = {}
-        for n in range(N):
-            L = int(t.shape[n])
-            K_n = int(eff[n])
-            khat = int(np.prod([eff[j] for j in range(N) if j != n]))
-            s_eff = sketch_block_size(K_n, L, khat, 1)
-            niter = sketch_niter(K_n, L, khat, s_eff)
-            lanczos_block[n] = s_eff
-            steps.append(self._get_stoch_step(
-                n, L, K_n, niter, s_eff, prec, obj.name, sample_fraction,
-                sample_seed))
+        steps = [self._get_stoch_step(n, t.shape[n], sp, sample_fraction,
+                                      sample_seed)
+                 for n, sp in enumerate(specs)]
 
         spectra: dict = {}
 
@@ -1332,28 +1258,10 @@ class HooiExecutor:
         fits = fits[:-1] + [obj.fit(t, core, dec.factors)]
         objective_metrics: dict = {}
         obj.sweep_metrics(objective_metrics, t, core, dec.factors)
-        with self._lock:
-            self._stats["runs"] += 1
-        on_card = self.device.type == "cuda"
-        stats = DistHooiStats(
+        stats = self._run_stats(
+            knobs, specs, tally, spectra, objective_metrics,
             fits=fits, sweep_s=sweep_s, comm={}, r_pad={}, e_pad={},
             scheme=pl.name, setup_s=setup_s,
-            step_compilations=tally["step_compilations"],
-            step_cache_hits=tally["step_cache_hits"],
-            step_captures=tally["step_captures"],
-            graph_replays=tally["graph_replays"],
-            uploads=tally["uploads"],
-            upload_cache_hit=tally["upload_cache_hits"] > 0,
-            executor=self.stats(),
-            z_kernel={n: on_card for n in range(N)},
-            comm_backends={n: "local" for n in range(N)},
-            precision=prec,
-            lanczos_block=lanczos_block,
-            objective=obj.name,
-            objective_metrics=objective_metrics or None,
-            warm_start={n: "sketch" for n in range(N)},
-            mode_spectra={n: v.cpu().numpy() for n, v in spectra.items()}
-            or None,
             sample_fraction=float(sample_fraction),
             sample_nnz=int(sb.sample_nnz),
             replay_nnz=int(sb.replay_nnz),
@@ -1390,13 +1298,13 @@ def _coerce_factors(factors, shape: Sequence[int], core_dims: Sequence[int],
     return out
 
 
-def _backend_label(specs: Sequence[_ModeSpec]) -> str:
+def _backend_label(specs: Sequence[ModeSpec]) -> str:
     """One calibration label per run: the uniform backend or 'mixed'."""
     names = {sp.backend for sp in specs}
     return names.pop() if len(names) == 1 else "mixed"
 
 
-def _run_comm_bytes(pl: PartitionPlan, specs: Sequence[_ModeSpec]) -> float:
+def _run_comm_bytes(pl: PartitionPlan, specs: Sequence[ModeSpec]) -> float:
     """Modeled comm bytes of the backends that ran (a plan may run under
     another backend family than it was costed for), so fitted per-backend
     bandwidths pair seconds with the bytes actually moved."""

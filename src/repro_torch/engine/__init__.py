@@ -50,11 +50,14 @@ from .objective import (
     resolve_objective,
 )
 from .oracle import (
+    ModeSpec,
     choose_warm_start,
     count_z_passes,
     group_products,
     mesh_products,
+    mode_spec,
     resolve_block_size,
+    resolve_knobs,
     resolve_warm_start,
     solve_oracle,
     solve_oracle_block,
@@ -95,6 +98,9 @@ __all__ = [
     "resolve_block_size",
     "resolve_warm_start",
     "choose_warm_start",
+    "ModeSpec",
+    "resolve_knobs",
+    "mode_spec",
     "z_products",
     "group_products",
     "mesh_products",

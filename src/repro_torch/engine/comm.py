@@ -96,8 +96,9 @@ class OracleSpace:
     backend's placement step alone — ``matvec = wrap_matvec_out ∘ zmv`` —
     so a fused Z-build that already holds ``Z_local @ V_1`` lifts it into
     the oracle space without a second pass over Z. ``seed(F)`` is the
-    sketch warm start's ``Σ_p Z_pᵀ F[orig_p]``: the factor columns ``F``
-    gathered per local row through ``f_src``, summed over the ranks.
+    sketch warm start's ``Σ_p Z_pᵀ F[orig_p]``: the factor's leading
+    columns ``F`` (a column slice, made contiguous here) gathered per local
+    row through ``f_src``, summed over the ranks.
     """
 
     matvec: Callable  # x (K_hat[, s]) -> u-space vector/panel
@@ -106,7 +107,7 @@ class OracleSpace:
     axis: object  # None (replicated), P stacked ranks, or a RankMesh
     finalize: Callable  # left vectors -> (P, Lp, k) per-rank factor rows
     wrap_matvec_out: Callable = None  # local Z product -> u-space placement
-    seed: Callable = None  # (L, w) factor columns -> (K_hat, w) at home
+    seed: Callable = None  # (L, w) factor column slice -> (K_hat, w) at home
 
 
 def resolve_backend(path: str, P: int, comm: dict | None = None) -> str:
@@ -318,6 +319,7 @@ def _psum_space(ms: dict, maps: dict, zmv, zrmv) -> OracleSpace:
 
 def _stacked_seed(maps: dict, zrmv) -> Callable:
     def seed(F):  # (L, w) -> (K_hat, w): one stacked rmatvec, ranks summed
+        F = F.contiguous()
         return rank_sum(zrmv(gather_rows(F, maps["f_src"])))
 
     return seed
@@ -407,6 +409,7 @@ def make_mesh_boundary_space(ms: dict, gmaps: list, mesh, prods
         return rank_sum(partials.home())
 
     def seed(F):  # (L, w) factor columns at home -> (K_hat, w)
+        F = F.contiguous()
         Fs = [mesh.to_group(F, g, "factors") for g in range(G)]
         partials = GroupTensor.build(mesh, lambda g: prods[g][1](
             gather_rows(Fs[g], gmaps[g]["f_src"])))

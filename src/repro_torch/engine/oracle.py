@@ -20,26 +20,37 @@ layout (the psum space); ``solve_oracle``/``solve_oracle_block`` run the
 vector and the block Lanczos drivers. ``resolve_warm_start``,
 ``choose_warm_start`` and ``count_z_passes`` settle the sketch warm start
 (``core.sketch``) per mode and count what each choice reads of Z.
+
+``ModeSpec`` is one mode step's solve parameters. ``resolve_knobs`` turns a
+run's knobs (``REPRO_*`` variables included) into the request once, and
+``mode_spec`` derives each mode's spec from it and the mode's geometry:
+``hooi``, the executor's steps and the stochastic rung all take their
+panel width, warm start, fused first product and iteration budget from it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 
 from repro_torch import envknobs
-from repro_torch.core.lanczos import (gk_bidiag, gk_block_bidiag,
-                                      lanczos_niter, svd_from_bidiag)
+from repro_torch.core.lanczos import (effective_block_size, gk_bidiag,
+                                      gk_block_bidiag, lanczos_niter,
+                                      svd_from_bidiag)
 from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, sketch_block_size,
                                      sketch_niter)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.random import Key
 
+from .zbuild import resolve_fused_zbuild, resolve_precision
+
 __all__ = ["z_products", "stacked_products", "group_products",
            "mesh_products", "solve_oracle",
            "solve_oracle_block", "resolve_block_size", "resolve_warm_start",
-           "choose_warm_start", "count_z_passes"]
+           "choose_warm_start", "count_z_passes", "ModeSpec",
+           "resolve_knobs", "mode_spec"]
 
 
 def resolve_block_size(block_size: int | None) -> int:
@@ -102,6 +113,83 @@ def count_z_passes(niter: int, fused_zbuild: bool = False, *,
     if warm_start == "sketch":
         passes += 1 + 2 * int(power_iters)
     return passes
+
+
+@dataclasses.dataclass(frozen=True)
+class ModeSpec:
+    """One mode step's static solve parameters.
+
+    ``resolve_knobs`` gives a run's request in this form (``block_size``
+    the requested panel width, ``warm_start`` possibly ``"auto"``);
+    ``mode_spec`` settles it per mode. The defaults are the main path's:
+    vector Lanczos, f32, plain products, no warm start, no fusion.
+    """
+
+    backend: str = "local"  # engine.comm's name ("zbuild": the TTM probe)
+    K_n: int = 0  # left singular vectors the solve returns
+    niter: int = 0  # block iterations when the block driver runs
+    block_size: int = 1  # effective (clamped) Lanczos panel width
+    fused_zbuild: bool = False  # the Z-build serves the first Z @ V_1
+    warm_start: str = "none"  # settled per mode: "none" | "sketch"
+    precision: str = "f32"  # the Z-build's
+    use_fused: bool = False  # the products run the oracle_pair kernel
+    objective: str = "tucker"
+
+    @property
+    def block_driver(self) -> bool:
+        """The block driver runs: a panel wider than 1, the fused first
+        product or the sketch's seeded panel."""
+        return (self.warm_start == "sketch" or self.fused_zbuild
+                or self.block_size > 1)
+
+
+def resolve_knobs(precision: str | None = None,
+                  lanczos_block: int | None = None,
+                  fused_zbuild: bool | None = None,
+                  warm_start: str | None = None,
+                  use_fused_oracle: bool | None = None,
+                  objective: str = "tucker") -> ModeSpec:
+    """A run's knobs as the request ``mode_spec`` settles per mode; each
+    None honors its ``REPRO_*`` variable (``precision="auto"`` consults
+    the fitted cost model)."""
+    return ModeSpec(precision=resolve_precision(precision),
+                    block_size=resolve_block_size(lanczos_block),
+                    fused_zbuild=resolve_fused_zbuild(fused_zbuild),
+                    warm_start=resolve_warm_start(warm_start),
+                    use_fused=bool(use_fused_oracle), objective=objective)
+
+
+def mode_spec(knobs: ModeSpec, K_n: int, L: int, khat: int,
+              niter: int | None = None, *,
+              backend: str = "local") -> ModeSpec:
+    """One mode's spec from the request ``knobs``, the reference's
+    arithmetic: for a mode of ``L`` rows whose Z has ``khat`` columns, the
+    panel clamped with ``effective_block_size``, ``"auto"`` settled by
+    ``choose_warm_start``, a sketch mode at the widened
+    ``sketch_block_size`` panel and never fused, and the iteration budget
+    (``lanczos_niter``, or ``sketch_niter`` for a sketch mode).
+
+    A given ``niter`` (``hooi``'s ``lanczos_iters``, a vector budget) is
+    counted in block iterations on the block driver and clamped as the
+    reference's ``lanczos_bidiag`` clamps it on the vector driver.
+    """
+    K_n, L, khat = int(K_n), int(L), int(khat)
+    s = effective_block_size(K_n, L, khat, knobs.block_size)
+    warm = choose_warm_start(knobs.warm_start, K_n, L, khat, s,
+                             knobs.fused_zbuild)
+    if warm == "sketch":
+        s = sketch_block_size(K_n, L, khat, knobs.block_size)
+    spec = dataclasses.replace(
+        knobs, backend=backend, K_n=K_n, block_size=s, warm_start=warm,
+        fused_zbuild=knobs.fused_zbuild and warm != "sketch")
+    if niter is None:
+        niter = (sketch_niter(K_n, L, khat, s) if warm == "sketch"
+                 else lanczos_niter(K_n, L, khat, s))
+    elif spec.block_driver:
+        niter = -(-int(niter) // s)  # vector budget -> block count
+    else:
+        niter = max(int(min(niter, L, khat)), min(K_n, L, khat))
+    return dataclasses.replace(spec, niter=int(niter))
 
 
 def z_products(Z: torch.Tensor, *,

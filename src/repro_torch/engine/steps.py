@@ -23,31 +23,35 @@ captures each into CUDA graphs (``repro_torch.graphs``); a step reaches its
 host factorizations and its draws only through ``graphs.host_call`` and
 ``graphs.upload``, so the same code runs eagerly and captured.
 
-Both run the vector driver, or the block driver when the panel is wider
-than 1, the fused Z-build is on, or the mode runs the sketch warm start
-(``warm_start="sketch"``: the factor-seeded start panel of
-``core.sketch``, one power iteration through the oracle, then the reduced
-``sketch_niter`` budget; a sketch mode never takes the fused build).
+Every step reads its solve parameters from an ``oracle.ModeSpec`` and
+runs the same solve after its Z-build, over an ``OracleSpace``: the comm
+backend's for the distributed step, a one-rank space over ``Z`` for the
+local and the stochastic steps. The solve runs the vector driver, or the
+block driver when the panel is wider than 1, the fused Z-build is on, or
+the mode runs the sketch warm start (``warm_start="sketch"``: the
+factor-seeded start panel of ``core.sketch``, one power iteration through
+the oracle, then the reduced ``sketch_niter`` budget; a sketch mode never
+takes the fused build).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Sequence
 
 import torch
 
 from repro_torch import tracing
-from repro_torch.core.lanczos import (block_start_panel, gk_block_bidiag,
-                                      lanczos_niter, svd_from_bidiag)
+from repro_torch.core.lanczos import block_start_panel
 from repro_torch.core.sketch import (DEFAULT_POWER_ITERS, power_refine,
-                                     seeded_start_panel, sketch_block_size,
-                                     sketch_niter)
+                                     seeded_start_panel)
 from repro_torch.random import Key
 
-from .comm import make_comm_space, make_mesh_boundary_space
-from .oracle import (group_products, mesh_products, solve_oracle,
-                     solve_oracle_block, stacked_products, z_products)
+from .comm import OracleSpace, make_comm_space, make_mesh_boundary_space
+from .oracle import (ModeSpec, group_products, mesh_products, mode_spec,
+                     solve_oracle, solve_oracle_block, stacked_products,
+                     z_products)
 from .zbuild import build_group_z, build_local_z, build_local_z_oracle
 
 __all__ = ["make_mode_step_fn", "make_zbuild_step_fn",
@@ -71,15 +75,56 @@ def _spread(mesh) -> bool:
     return mesh is not None and mesh.G > 1
 
 
-def make_zbuild_step_fn(ms: dict, precision: str = "f32", mesh=None):
+def _same(x):
+    return x
+
+
+def _local_space(Z: torch.Tensor, fused: bool = False) -> OracleSpace:
+    """The one-rank space over an explicit ``Z``: its products, nothing to
+    place or gather, and the sketch seed ``Zᵀ F`` one ``rmatvec``."""
+    matvec, rmatvec = z_products(Z, fused=fused)
+    return OracleSpace(matvec, rmatvec, int(Z.shape[0]), None, _same, _same,
+                       lambda F: rmatvec(F.contiguous()))
+
+
+def _solve(space: OracleSpace, spec: ModeSpec, F_n: torch.Tensor, key: Key,
+           Khat: int, device, first_panel: torch.Tensor | None = None,
+           ZV1: torch.Tensor | None = None):
+    """A mode step after its Z-build: the sketch's seeded panel and its
+    power iteration, then the vector or the block driver over ``space``.
+    ``first_panel``/``ZV1`` are the fused Z-build's panel and its product.
+    Returns ``(space.finalize(left), S)``."""
+    if spec.warm_start == "sketch":
+        w = min(spec.block_size, int(F_n.shape[1]))
+        seed = space.seed(F_n[:, :w])
+        first_panel = seeded_start_panel(seed, key, Khat, spec.block_size)
+        first_panel = power_refine(space.matvec, space.rmatvec, first_panel,
+                                   DEFAULT_POWER_ITERS)
+    if spec.block_driver:
+        first_product = None if ZV1 is None else space.wrap_matvec_out(ZV1)
+        left, S = solve_oracle_block(
+            space.matvec, space.rmatvec, space.dim_u, Khat, spec.K_n,
+            spec.niter, spec.block_size, key, axis=space.axis,
+            first_panel=first_panel, first_product=first_product,
+            device=device)
+    else:
+        left, S = solve_oracle(space.matvec, space.rmatvec, space.dim_u,
+                               Khat, spec.K_n, spec.niter, key,
+                               axis=space.axis, device=device)
+    return space.finalize(left), S
+
+
+def make_zbuild_step_fn(ms: dict, mesh=None):
     """TTM-only step: the stacked ranks' Z build, ``(P*R_pad, K_hat)``.
 
     ``fn(arrs, factors, key) -> Z`` over the arrays of
-    ``make_mode_step_fn`` (``coords``, ``values``, ``rows``); ``key`` is
-    unused. The executor's per-phase calibration probe. Over a mesh of
-    several groups it returns the groups' Z, each on its device.
+    ``make_mode_step_fn`` (``coords``, ``values``, ``rows``) at the
+    precision of ``ms["spec"]``; ``key`` is unused. The executor's
+    per-phase calibration probe. Over a mesh of several groups it returns
+    the groups' Z, each on its device.
     """
     num_rows, mode = ms["P"] * ms["R_pad"], ms["mode"]
+    precision = ms["spec"].precision
 
     def fn(arrs: dict, factors: Sequence[torch.Tensor], key: Key):
         if _spread(mesh):
@@ -109,33 +154,30 @@ def make_stochastic_step_fn(mode: int, num_rows: int, K_n: int, niter: int,
     factor (``core.stochastic.blend_factor``) and refines with the
     objective.
     """
+    spec = ModeSpec(K_n=int(K_n), niter=int(niter),
+                    block_size=int(block_size), warm_start="sketch",
+                    precision=precision)
 
     def fn(arrs: dict, factors: Sequence[torch.Tensor], key: Key):
         coords, values = arrs["coords"], arrs["values"]
         Z = build_local_z(coords, values, coords[:, mode], factors, mode,
                           num_rows, sorted_rows=False, precision=precision)
-        matvec, rmatvec = z_products(Z)
-        Khat = int(Z.shape[1])
-        seed = Z.T @ factors[mode][:, :min(int(block_size), K_n)]
-        first_panel = seeded_start_panel(seed, key, Khat, block_size)
-        first_panel = power_refine(matvec, rmatvec, first_panel,
-                                   DEFAULT_POWER_ITERS)
-        U, B = gk_block_bidiag(matvec, rmatvec, num_rows, Khat, niter,
-                               block_size, key, axis=None,
-                               first_panel=first_panel, device=Z.device)
-        return svd_from_bidiag(U, B, K_n, key, axis=None)
+        # the seed reads the factor's column slice in place: on the card
+        # cuBLAS can round a strided operand apart from its contiguous copy
+        space = dataclasses.replace(_local_space(Z), seed=lambda F: Z.T @ F)
+        return _solve(space, spec, factors[mode], key, int(Z.shape[1]),
+                      Z.device)
 
     return fn
 
 
-def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int,
-                      mesh=None):
+def make_mode_step_fn(ms: dict, mesh=None):
     """One distributed mode step over the stacked ranks.
 
-    ``ms`` is the static partition signature (mode, R_pad, Lp, P,
-    use_fused, precision, block_size, fused_zbuild, warm_start); ``backend``
-    one of ``engine.comm``'s names; ``niter`` counts block iterations when
-    the block driver runs.
+    ``ms`` is the static partition signature (mode, R_pad, Lp, P) with the
+    mode's ``spec`` (an ``oracle.ModeSpec``: the comm backend, one of
+    ``engine.comm``'s names, and the solve's parameters; ``niter`` counts
+    block iterations when the block driver runs).
 
     ``fn(arrs, factors, key) -> (F, S)``: ``arrs`` holds the partition's
     elements flattened over the ranks (``coords`` (P*E_pad, N), ``values``,
@@ -151,7 +193,7 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int,
     once per plan, ``comm.comm_maps``) gives each local row's original row
     id, the gather of those factor rows is one stacked ``rmatvec`` (one
     ``oracle_pair`` launch for all ranks when fused) and ``rank_sum`` adds
-    the ranks in order. The spec builder turns the fused build off for
+    the ranks in order. ``oracle.mode_spec`` turns the fused build off for
     sketch modes.
 
     With a ``mesh`` of G > 1 device groups (``distributed.mesh``), ``arrs``
@@ -167,20 +209,17 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int,
     (``oracle.mesh_products``) to the stacked space there.
     """
     P, R_pad, mode = ms["P"], ms["R_pad"], ms["mode"]
-    precision = ms.get("precision", "f32")
-    block_size = int(ms.get("block_size", 1))
-    fused_zbuild = bool(ms.get("fused_zbuild", False))
-    warm_start = ms.get("warm_start", "none")
-    assert not (fused_zbuild and warm_start == "sketch"), \
-        "sketch warm start excludes the fused first product (spec builder)"
+    spec: ModeSpec = ms["spec"]
+    backend, precision, fused = spec.backend, spec.precision, spec.use_fused
+    assert not (spec.fused_zbuild and spec.warm_start == "sketch"), \
+        "sketch warm start excludes the fused first product (mode_spec)"
 
     def fn(arrs: dict, factors: Sequence[torch.Tensor], key: Key):
         Khat = _khat(factors, mode)
         dev = mesh.home if _spread(mesh) else arrs["values"].device
         first_panel = ZV1 = None
-        if fused_zbuild:
-            first_panel = block_start_panel(key, Khat, block_size, dev)
-        fused = ms.get("use_fused", False)
+        if spec.fused_zbuild:
+            first_panel = block_start_panel(key, Khat, spec.block_size, dev)
         if _spread(mesh):
             sharded = backend == "boundary"
             Zs, ZV1 = build_group_z(mesh, arrs["groups"], factors, mode,
@@ -194,7 +233,7 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int,
                 space = make_comm_space(backend, ms, arrs,
                                         *mesh_products(Zs, mesh, fused=fused))
         else:
-            if fused_zbuild:
+            if spec.fused_zbuild:
                 Z, ZV1 = build_local_z_oracle(
                     arrs["coords"], arrs["values"], arrs["rows"], factors,
                     mode, P * R_pad, first_panel, precision=precision)
@@ -204,24 +243,8 @@ def make_mode_step_fn(ms: dict, backend: str, K_n: int, niter: int,
                                   precision=precision)
             space = make_comm_space(backend, ms, arrs,
                                     *stacked_products(Z, P, fused=fused))
-        if warm_start == "sketch":
-            F_n = factors[mode]
-            w = min(block_size, int(F_n.shape[1]))
-            seed = space.seed(F_n[:, :w].contiguous())
-            first_panel = seeded_start_panel(seed, key, Khat, block_size)
-            first_panel = power_refine(space.matvec, space.rmatvec,
-                                       first_panel, DEFAULT_POWER_ITERS)
-        if warm_start == "sketch" or fused_zbuild or block_size > 1:
-            first_product = None if ZV1 is None else space.wrap_matvec_out(ZV1)
-            left, S = solve_oracle_block(
-                space.matvec, space.rmatvec, space.dim_u, Khat, K_n, niter,
-                block_size, key, axis=space.axis, first_panel=first_panel,
-                first_product=first_product, device=dev)
-        else:
-            left, S = solve_oracle(space.matvec, space.rmatvec, space.dim_u,
-                                   Khat, K_n, niter, key, axis=space.axis,
-                                   device=dev)
-        return space.finalize(left), S
+        return _solve(space, spec, factors[mode], key, Khat, dev,
+                      first_panel, ZV1)
 
     return fn
 
@@ -233,79 +256,46 @@ def local_mode_step(
     mode: int,
     num_rows: int,
     key: Key,
+    spec: ModeSpec | None = None,
     *,
-    k: int | None = None,
-    niter: int | None = None,
-    use_fused_oracle: bool = False,
-    precision: str = "f32",
-    block_size: int = 1,
-    fused_zbuild: bool = False,
-    warm_start: str = "none",
     timings: dict | None = None,
     objective=None,
 ) -> torch.Tensor:
-    """One single-process mode step; returns the refined factor (num_rows, k).
+    """One single-process mode step; returns the refined factor
+    (num_rows, spec.K_n).
 
-    ``block_size`` is the effective (clamped) panel width; ``block_size >
-    1`` or ``fused_zbuild`` runs the block driver, as the distributed step
-    does, so ``hooi`` and ``dist_hooi(P=1)`` walk the same Krylov space.
-    ``warm_start="sketch"`` runs the block driver from the factor-seeded
-    panel (``Zᵀ F_n[:, :w]`` through the oracle's ``rmatvec``, then one
-    power iteration) at the widened ``sketch_block_size`` and, when
-    ``niter`` is not given, the reduced ``sketch_niter`` budget; it turns
-    ``fused_zbuild`` off. ``objective`` (an ``engine.objective.Objective``)
-    post-processes the solve with ``refine_factor(left, S)``.
-    ``timings`` (optional) accumulates blocking per-phase wall times under
-    ``"ttm"``/``"svd"``. A given ``niter`` is clamped as the reference's
-    ``lanczos_bidiag`` clamps it on the vector driver and taken as it is (in
-    block iterations) on the block driver.
+    ``spec`` is the mode's ``oracle.mode_spec`` (None: the main path's
+    defaults over this mode's geometry); the block driver runs where it
+    says, as in the distributed step, so ``hooi`` and ``dist_hooi(P=1)``
+    walk the same Krylov space. A sketch mode seeds the block driver with
+    ``Zᵀ F_n[:, :w]`` through the one-rank space's ``rmatvec``, then one
+    power iteration. ``objective`` (an ``engine.objective.Objective``)
+    post-processes the solve with ``refine_factor(left, S)``. ``timings``
+    (optional) accumulates blocking per-phase wall times under
+    ``"ttm"``/``"svd"``.
     """
-    k = int(factors[mode].shape[1]) if k is None else int(k)
     Khat = _khat(factors, mode)
-    block_size = int(block_size)
-    if warm_start == "sketch":
-        fused_zbuild = False
-        block_size = sketch_block_size(k, num_rows, Khat, block_size)
-    blockish = fused_zbuild or block_size > 1 or warm_start == "sketch"
+    if spec is None:
+        spec = mode_spec(ModeSpec(), int(factors[mode].shape[1]), num_rows,
+                         Khat)
     t0 = time.perf_counter()
-    first_panel = first_product = None
-    if fused_zbuild:
-        first_panel = block_start_panel(key, Khat, block_size, coords.device)
-        Z, first_product = build_local_z_oracle(
+    first_panel = ZV1 = None
+    if spec.fused_zbuild:
+        first_panel = block_start_panel(key, Khat, spec.block_size,
+                                        coords.device)
+        Z, ZV1 = build_local_z_oracle(
             coords, values, coords[:, mode], factors, mode, num_rows,
-            first_panel, sorted_rows=False, precision=precision)
+            first_panel, sorted_rows=False, precision=spec.precision)
     else:
         Z = build_local_z(coords, values, coords[:, mode], factors, mode,
-                          num_rows, sorted_rows=False, precision=precision)
+                          num_rows, sorted_rows=False,
+                          precision=spec.precision)
     if timings is not None:
         _sync(Z)
     t1 = time.perf_counter()
     with tracing.span("lanczos"):
-        matvec, rmatvec = z_products(Z, fused=use_fused_oracle)
-        if niter is None:
-            niter = (sketch_niter(k, num_rows, Khat, block_size)
-                     if warm_start == "sketch"
-                     else lanczos_niter(k, num_rows, Khat,
-                                        block_size if blockish else 1))
-        elif not blockish:
-            niter = max(int(min(niter, num_rows, Khat)),
-                        min(k, num_rows, Khat))
-        if warm_start == "sketch":
-            seed = rmatvec(factors[mode][:, :min(block_size, k)]
-                           .contiguous())
-            first_panel = seeded_start_panel(seed, key, Khat, block_size)
-            first_panel = power_refine(matvec, rmatvec, first_panel,
-                                       DEFAULT_POWER_ITERS)
-        if blockish:
-            U, B = gk_block_bidiag(matvec, rmatvec, num_rows, Khat, niter,
-                                   block_size, key, axis=None,
-                                   first_panel=first_panel,
-                                   first_product=first_product,
-                                   device=Z.device)
-            left, S = svd_from_bidiag(U, B, k, key, axis=None)
-        else:
-            left, S = solve_oracle(matvec, rmatvec, num_rows, Khat, k,
-                                   niter, key, device=Z.device)
+        left, S = _solve(_local_space(Z, spec.use_fused), spec,
+                         factors[mode], key, Khat, Z.device, first_panel, ZV1)
     if objective is not None:
         left = objective.refine_factor(left, S)
     if timings is not None:

@@ -29,6 +29,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kron_segsum import (kron_segsum, kron_segsum_gather2,
                                              kron_segsum_oracle)
 from repro_torch.distributed import executor as exmod
+from repro_torch.engine.oracle import ModeSpec
 from repro_torch.engine.steps import make_mode_step_fn
 from repro_torch.kernels import oracle_fused
 from repro_torch.kernels.oracle_fused import oracle_pair
@@ -465,25 +466,20 @@ def _captured_case(warm_start, path):
     t = synth_tensor((60, 50, 40), 20_000, alphas=(1.1, 1.0, 0.9), seed=3)
     pl = port_plan.plan(t, "lite", 4, core_dims=(5, 5, 5), path=path)
     ex = HooiExecutor(4)
-    specs = ex._mode_specs(pl, (5, 5, 5), path, block_size=4,
-                           fused_zbuild=True, warm_start=warm_start)
+    specs = ex._mode_specs(pl, (5, 5, 5), path, ModeSpec(
+        block_size=4, fused_zbuild=True, warm_start=warm_start,
+        use_fused=True))
     up = ex._get_upload(pl, t, exmod._tally())
     steps = []
     for mp, sp in zip(pl.parts, specs):
-        kw = dict(use_fused=True, precision=sp.precision,
-                  block_size=sp.block_size, fused_zbuild=sp.fused_zbuild,
-                  warm_start=sp.warm_start)
-        skey, step = ex._get_step(mp, sp.backend, sp.K_n, niter=sp.niter,
-                                  objective=sp.objective, **kw)
+        skey, step = ex._get_step(mp, sp)
 
         def cached(arrs, factors, key, skey=skey, step=step):
             return ex._call_step(skey, step, up, arrs, factors, key,
                                  exmod._tally())
 
         steps.append((up.arrs[mp.mode],
-                       make_mode_step_fn(exmod.step_spec(mp, **kw),
-                                         sp.backend, sp.K_n, sp.niter),
-                       cached))
+                       make_mode_step_fn(exmod.step_spec(mp, sp)), cached))
     factors = hooi.random_factors(t.shape, (5, 5, 5), make_key(1), "cuda")
     return ex, steps, factors
 
@@ -549,17 +545,13 @@ def test_captured_step_bitwise_eager_at_3m(cuda, path):
     t = synth_tensor((1200, 900, 2800), 3_000_000)
     pl = port_plan.plan(t, "lite", 4, core_dims=core, path=path)
     ex = HooiExecutor(4)
-    specs = ex._mode_specs(pl, core, path, block_size=8, fused_zbuild=True)
+    specs = ex._mode_specs(pl, core, path, ModeSpec(
+        block_size=8, fused_zbuild=True, use_fused=True))
     up = ex._get_upload(pl, t, exmod._tally())
     factors = hooi.random_factors(t.shape, core, make_key(21), "cuda")
     for mp, sp in zip(pl.parts, specs):
-        kw = dict(use_fused=True, precision=sp.precision,
-                  block_size=sp.block_size, fused_zbuild=sp.fused_zbuild,
-                  warm_start=sp.warm_start)
-        skey, step = ex._get_step(mp, sp.backend, sp.K_n, niter=sp.niter,
-                                  objective=sp.objective, **kw)
-        eager = make_mode_step_fn(exmod.step_spec(mp, **kw), sp.backend,
-                                  sp.K_n, sp.niter)
+        skey, step = ex._get_step(mp, sp)
+        eager = make_mode_step_fn(exmod.step_spec(mp, sp))
         key = make_key(22).fold_in(1000 + mp.mode)
         want = eager(up.arrs[mp.mode], factors, key)
         for _ in range(2):  # the capture, then a replay

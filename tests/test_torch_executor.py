@@ -36,6 +36,7 @@ from repro_torch.core.calibrate import (CostModel, fit_cost_model,
                                         set_cost_model)
 from repro_torch.distributed import executor as exmod
 from repro_torch.distributed.dist_hooi import dist_hooi, shared_executor
+from repro_torch.engine.oracle import ModeSpec
 from repro_torch.engine.zbuild import resolve_precision
 from repro_torch.random import Key
 from test_calibrate import _phase_samples, _samples
@@ -181,17 +182,18 @@ def test_step_cache_is_bounded(monkeypatch):
         def __init__(self, mode):
             self.mode, self.R_pad, self.Lp, self.S_pad = mode, 8, 3, 1
 
-    k0, s0 = ex._get_step(FakeMP(0), "liteopt", 2)
+    spec = ModeSpec(backend="boundary", K_n=2, niter=4)
+    k0, s0 = ex._get_step(FakeMP(0), spec)
     ex._seen_shapes.add((k0, ("fake",)))
-    k1, _ = ex._get_step(FakeMP(1), "liteopt", 2)
-    assert ex._get_step(FakeMP(0), "liteopt", 2)[1] is s0  # hit -> MRU
-    k2, _ = ex._get_step(FakeMP(2), "liteopt", 2)  # evicts k1, not k0
+    k1, _ = ex._get_step(FakeMP(1), spec)
+    assert ex._get_step(FakeMP(0), spec)[1] is s0  # hit -> MRU
+    k2, _ = ex._get_step(FakeMP(2), spec)  # evicts k1, not k0
     assert len(ex._steps) == 2
     assert k0 in ex._steps and k2 in ex._steps and k1 not in ex._steps
-    assert ex._get_step(FakeMP(0), "liteopt", 2)[1] is s0
+    assert ex._get_step(FakeMP(0), spec)[1] is s0
     assert (k0, ("fake",)) in ex._seen_shapes
-    ex._get_step(FakeMP(3), "liteopt", 2)  # evicts k2; k0 is MRU
-    ex._get_step(FakeMP(4), "liteopt", 2)  # now evicts k0
+    ex._get_step(FakeMP(3), spec)  # evicts k2; k0 is MRU
+    ex._get_step(FakeMP(4), spec)  # now evicts k0
     assert k0 not in ex._steps
     assert (k0, ("fake",)) not in ex._seen_shapes
 

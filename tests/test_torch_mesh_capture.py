@@ -35,6 +35,7 @@ from repro_torch.core.hooi import random_factors
 from repro_torch.core.plan import plan as build_plan
 from repro_torch.distributed.dist_hooi import HooiExecutor, make_ranks_mesh
 from repro_torch.distributed.executor import _tally
+from repro_torch.engine.oracle import ModeSpec
 from repro_torch.graphs import StepGraph
 from repro_torch.random import make_key
 
@@ -62,19 +63,14 @@ def _steps(ex: HooiExecutor, t: SparseTensor, pl, case: str) -> list:
     """Per mode, the executor's cached step and its arrays at ``case``'s
     knobs, as ``run`` resolves them."""
     path, kw = CASES[case]
-    specs = ex._mode_specs(pl, CORE, path,
-                           block_size=kw.get("lanczos_block", 1),
-                           fused_zbuild=kw.get("fused_zbuild", False),
-                           warm_start=kw.get("warm_start", "none"))
+    specs = ex._mode_specs(pl, CORE, path, ModeSpec(
+        block_size=kw.get("lanczos_block", 1),
+        fused_zbuild=kw.get("fused_zbuild", False),
+        warm_start=kw.get("warm_start", "none"), use_fused=True))
     up = ex._get_upload(pl, t, _tally())
     out = []
     for mp, sp in zip(pl.parts, specs):
-        _, step = ex._get_step(mp, sp.backend, sp.K_n, niter=sp.niter,
-                               use_fused=True, precision=sp.precision,
-                               block_size=sp.block_size,
-                               fused_zbuild=sp.fused_zbuild,
-                               objective=sp.objective,
-                               warm_start=sp.warm_start)
+        _, step = ex._get_step(mp, sp)
         out.append((up.arrs[mp.mode], step))
     return out
 

@@ -60,10 +60,10 @@ def _specs(ex, pl, knob: str, path: str = "liteopt") -> list:
     """The per-mode static step parameters ``run`` resolves for ``knob``:
     ``niter`` (block iterations under the block driver) and the panel."""
     kw = KNOBS[knob]
-    return ex._mode_specs(pl, CORE, path,
-                          block_size=kw.get("lanczos_block", 1),
-                          fused_zbuild=kw.get("fused_zbuild", False),
-                          warm_start=kw.get("warm_start", "none"))
+    return ex._mode_specs(pl, CORE, path, oracle.ModeSpec(
+        block_size=kw.get("lanczos_block", 1),
+        fused_zbuild=kw.get("fused_zbuild", False),
+        warm_start=kw.get("warm_start", "none")))
 
 
 def _split(x: torch.Tensor, mesh) -> GroupTensor:
