@@ -3,20 +3,26 @@
 The JAX package hands its tensors, factor matrices and decompositions over as
 numpy arrays (``np.asarray`` of a JAX array); these functions build the
 port's counterparts from them, on an explicit device. They are also how the
-entry points put a host ``SparseTensor`` on the device.
+entry points put a host ``SparseTensor`` on the device: ``device_coords``
+keeps the device copy with the tensor, so a tensor crosses the bus once per
+device.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.coo import SparseTensor
-from repro_torch.device import resolve_device
+from repro_torch.device import indexed_device, resolve_device
 
-__all__ = ["sparse_tensor", "factors", "decomposition", "device_coords"]
+__all__ = ["sparse_tensor", "factors", "decomposition", "device_coords",
+           "kept_coords"]
+
+_KEEP_LOCK = threading.Lock()  # guards the per-tensor memos' first entry
 
 
 def sparse_tensor(coords, values, shape: Sequence[int]) -> SparseTensor:
@@ -50,10 +56,38 @@ def decomposition(core, factor_arrays: Sequence,
     return Decomposition(core=core_t, factors=factors(factor_arrays, dev))
 
 
-def device_coords(t: SparseTensor, device: torch.device
+def kept_coords(t: SparseTensor, device: str | torch.device
+                ) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """The pair ``device_coords`` keeps for ``t`` on ``device``, or None
+    when it has made none yet (then the next call copies)."""
+    memo = getattr(t, "_device_coords", None)
+    return None if memo is None else memo.get(indexed_device(device))
+
+
+def device_coords(t: SparseTensor, device: str | torch.device
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(coords int32 (nnz, N), values float32 (nnz,)) of ``t`` on ``device``,
-    the dtypes the reference's entry points use on its device."""
+    the dtypes the reference's entry points use on its device.
+
+    Kept with ``t``, one pair per device (``"cuda"`` and ``"cuda:0"`` are
+    one): the first call for a (tensor, device) pair casts on the host and
+    copies; later calls return the same two tensors, with no cast and no
+    copy, as ``SparseTensor.fingerprint`` is kept on the premise that a
+    tensor's arrays never change. The pair is shared by every caller, so
+    it is read only, and it stays on the device while ``t`` lives. Two
+    threads that miss at once both copy; the first pair stored is kept and
+    returned to both.
+    """
+    dev = indexed_device(device)
+    kept = kept_coords(t, dev)
+    if kept is not None:
+        return kept
     coords = torch.from_numpy(np.ascontiguousarray(t.coords, dtype=np.int32))
     values = torch.from_numpy(np.ascontiguousarray(t.values, dtype=np.float32))
-    return coords.to(device), values.to(device)
+    pair = (coords.to(dev), values.to(dev))
+    with _KEEP_LOCK:
+        memo = getattr(t, "_device_coords", None)
+        if memo is None:
+            memo = {}
+            object.__setattr__(t, "_device_coords", memo)
+        return memo.setdefault(dev, pair)

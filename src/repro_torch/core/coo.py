@@ -4,7 +4,9 @@ The port's own copy of the reference's host-side ``SparseTensor``
 (``src/repro/core/coo.py``), limited to what the port's paths use, with
 the FROSTT ``.tns`` reader and writer. It stays in numpy: generation and
 validation are host work, and the device copies are made at the entry point
-(``repro_torch.convert.device_coords``).
+(``repro_torch.convert.device_coords``), which keeps them on the instance
+beside the fingerprint: a tensor's arrays are never written once built, and
+the kept device copies are read only.
 A mode-n *slice* is the set of elements sharing the n-th coordinate.
 """
 

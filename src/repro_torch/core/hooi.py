@@ -200,6 +200,14 @@ def hooi(
 
     ``draw`` replaces the default seeded draws (``repro_torch.random``);
     ``on_sweep(it, seconds, fit)`` observes every sweep.
+
+    The sweeps read ``t``'s coordinates and values from
+    ``convert.device_coords``, which keeps them with ``t`` on ``device``:
+    the first call on a tensor copies them there, later calls on the same
+    instance reuse that copy (the span ``hooi.upload`` then counts 0
+    ``hooi.upload_bytes`` and 1 ``hooi.upload_reused``). The copy stays on
+    the device, about ``nnz * (4 N + 4)`` bytes, for as long as ``t`` lives;
+    it is shared and never written.
     """
     from repro_torch.engine import steps
     from repro_torch.engine.objective import resolve_objective
@@ -235,9 +243,13 @@ def hooi(
             specs = _local_specs(knobs, factors, t.shape, lanczos_iters)
 
             with tracing.span("hooi.upload"):
+                reused = convert.kept_coords(t, dev) is not None
                 coords, values = convert.device_coords(t, dev)
-                tracing.count("hooi.upload_bytes",
-                              coords.nbytes + values.nbytes)
+                # the bytes that crossed: none when the copy was kept
+                tracing.count("hooi.upload_bytes", 0 if reused
+                              else coords.nbytes + values.nbytes)
+                if reused:
+                    tracing.count("hooi.upload_reused", 1)
 
         def mode_step(n, facs, kk):
             return steps.local_mode_step(coords, values, facs, n, t.shape[n],

@@ -53,12 +53,15 @@ def _lead_a(
     values: torch.Tensor,
     factors: Sequence[torch.Tensor],
     lead: Sequence[int],
+    cols: Sequence[int] | None = None,
 ) -> torch.Tensor:
-    """a = val * kron(rows of the leading factors), (nnz, Ka)."""
+    """a = val * kron(rows of the leading factors), (nnz, Ka); ``cols``
+    gives the column of ``coords`` that holds each leading mode (default:
+    column j for mode j)."""
     nnz = values.shape[0]
     a = values[:, None]
-    for j in lead:
-        rows = factors[j].index_select(0, coords[:, j])
+    for j, col in zip(lead, lead if cols is None else cols):
+        rows = factors[j].index_select(0, coords[:, col])
         # explicit width (not -1): must also reshape for nnz == 0
         a = (a[:, :, None] * rows[:, None, :]).reshape(
             nnz, a.shape[1] * rows.shape[1])
@@ -85,8 +88,13 @@ def _gathered(coords, values, local_rows, factors, mode, num_rows, X,
     """The gather form of the Z-build: with one or two leading factors
     (N = 3, 4) the kernel gathers every factor's rows itself; with more, the
     leading levels are folded into ``a`` here (counted as
-    ``zbuild.fold_bytes``) and only the last factor is gathered."""
-    *lead, last = [j for j in range(len(factors)) if j != mode]
+    ``zbuild.fold_bytes``) and only the last factor is gathered. ``coords``
+    has a column per mode, or one per mode but ``mode`` (``_row_order``'s
+    layout from N = 4), since the rows stand for the mode's own."""
+    other = [j for j in range(len(factors)) if j != mode]
+    *lead, last = other
+    col = dict(zip(other, other if coords.shape[1] == len(factors)
+                   else range(len(other))))
     rows = local_rows.to(torch.int32).contiguous()
     coords = coords.to(torch.int32).contiguous()
     values = values.to(torch.float32).contiguous()
@@ -96,32 +104,37 @@ def _gathered(coords, values, local_rows, factors, mode, num_rows, X,
 
     if len(lead) == 1:
         (j,) = lead
-        return kron_segsum_gather(rows, coords, values, f32(j), f32(last), j,
-                                  last, num_rows, X=X, precision=precision)
+        return kron_segsum_gather(rows, coords, values, f32(j), f32(last),
+                                  col[j], col[last], num_rows, X=X,
+                                  precision=precision)
     if len(lead) == 2:
         j1, j2 = lead
         return kron_segsum_gather2(rows, coords, values, f32(j1), f32(j2),
-                                   f32(last), j1, j2, last, num_rows, X=X,
-                                   precision=precision)
-    a = _lead_a(coords, values, factors, lead).to(torch.float32)
+                                   f32(last), col[j1], col[j2], col[last],
+                                   num_rows, X=X, precision=precision)
+    a = _lead_a(coords, values, factors, lead,
+                [col[j] for j in lead]).to(torch.float32)
     tracing.count("zbuild.fold_bytes", a.numel() * a.element_size())
-    return kron_segsum_gather(rows, coords, None, a, f32(last), None, last,
-                              num_rows, X=X, precision=precision)
+    return kron_segsum_gather(rows, coords, None, a, f32(last), None,
+                              col[last], num_rows, X=X, precision=precision)
 
 
-def _row_order(coords, values, local_rows):
+def _row_order(coords, values, local_rows, mode):
     """The elements sorted by row on their device: a stable sort (so reruns
     are bitwise equal) gives the sorted rows and the order. Rows of four or
     more coordinates are taken column by column into one array: PyTorch's
     indexing of whole (E, 4) int32 rows took 34.5 ms at 54.2M elements on an
     H100, by column 12.4 ms (three-coordinate rows, whole: 5.8 ms at
-    76.9M)."""
+    76.9M). Column by column, ``mode``'s own column is left out (the kernels
+    read the rows in its place): one gather fewer, and E int32 less held
+    while Z is built."""
     rows, order = torch.sort(local_rows, stable=True)
-    if coords.shape[1] < 4:
+    N = coords.shape[1]
+    if N < 4:
         return coords[order], values[order], rows
-    c = torch.empty_like(coords)
-    for j in range(coords.shape[1]):
-        c[:, j] = coords[:, j][order]
+    c = coords.new_empty((coords.shape[0], N - 1))
+    for i, j in enumerate(j for j in range(N) if j != mode):
+        c[:, i] = coords[:, j][order]
     return c, values[order], rows
 
 
@@ -152,7 +165,7 @@ def penultimate_local(
 ) -> torch.Tensor:
     """Z for row ids in any order: a stable sort on the tensors' device puts
     them in the kernel's order (stable, so reruns are bitwise equal)."""
-    c, v, rows = _row_order(coords, values, local_rows)
+    c, v, rows = _row_order(coords, values, local_rows, mode)
     return penultimate_sorted(c, v, rows, factors, mode, num_local_rows,
                               precision=precision)
 
@@ -187,7 +200,7 @@ def penultimate_local_oracle(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``penultimate_sorted_oracle`` for row ids in any order (stable sort
     on the tensors' device first, as ``penultimate_local``)."""
-    c, v, rows = _row_order(coords, values, local_rows)
+    c, v, rows = _row_order(coords, values, local_rows, mode)
     return penultimate_sorted_oracle(c, v, rows, factors, mode,
                                      num_local_rows, X, precision=precision)
 

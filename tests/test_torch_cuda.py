@@ -155,6 +155,42 @@ def test_hooi_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(F @ F.T, Fc @ Fc.T, atol=1e-3)
 
 
+def test_second_hooi_call_reuses_the_card_copy(cuda, monkeypatch):
+    """A second ``hooi`` on one 1.07M-element tensor copies nothing from
+    the host: ``device_coords`` hands it the pair the first call left on
+    the card, and both calls (and one on a fresh instance) agree bitwise."""
+    from repro_torch import tracing
+
+    t = synth_tensor((1200, 900, 2800), 1_500_000, seed=8)
+    assert t.nnz >= 1_000_000
+    seen = []
+    real = convert.device_coords
+
+    def device_coords(tt, device):
+        seen.append(real(tt, device))
+        return seen[-1]
+
+    monkeypatch.setattr(convert, "device_coords", device_coords)
+    kw = dict(n_invocations=2, seed=4, use_fused_oracle=True)
+    first = hooi.hooi(t, (8, 8, 8), **kw)
+    tracing.clear()
+    with tracing.recording():
+        second = hooi.hooi(t, (8, 8, 8), **kw)
+    counters = tracing.summary()["hooi.upload"]["counters"]
+    tracing.clear()
+    fresh = hooi.hooi(convert.sparse_tensor(t.coords, t.values, t.shape),
+                      (8, 8, 8), **kw)
+    assert seen[1][0] is seen[0][0] and seen[1][1] is seen[0][1]
+    assert seen[2][0] is not seen[0][0]
+    assert seen[0][0].is_cuda and seen[0][1].is_cuda
+    assert counters == {"hooi.upload_bytes": 0, "hooi.upload_reused": 1}
+    for dec, fits in (second, fresh):
+        assert fits == first[1]
+        assert torch.equal(dec.core, first[0].core)
+        for F, F0 in zip(dec.factors, first[0].factors):
+            assert torch.equal(F, F0)
+
+
 def test_core_on_card_matches_plain(cuda):
     t = synth_tensor((40, 30, 20, 10), 5_000, alphas=1.0, seed=4)
     coords, values = convert.device_coords(t, cuda)
@@ -354,7 +390,8 @@ def test_two_lead_walk_widths_bitwise_fold(cuda, core, precision):
 @pytest.mark.parametrize("N", [3, 4, 5])
 def test_row_order_bitwise_indexing(cuda, N):
     """The unsorted build's reorder on the card (whole rows at N = 3,
-    column by column from N = 4) gives indexing's bits."""
+    column by column from N = 4, without the mode's column) gives
+    indexing's bits."""
     g = torch.Generator().manual_seed(N)
     E = 300_001
     coords = torch.randint(0, 1 << 30, (E, N), generator=g,
@@ -362,9 +399,12 @@ def test_row_order_bitwise_indexing(cuda, N):
     values = torch.randn(E, generator=g).to(cuda)
     local_rows = torch.randint(0, 1000, (E,), generator=g).to(cuda)
     order = torch.argsort(local_rows, stable=True)
-    c, v, rows = ops._row_order(coords, values, local_rows)
-    assert torch.equal(c, coords[order]) and torch.equal(v, values[order])
-    assert torch.equal(rows, local_rows[order]) and c.is_contiguous()
+    for mode in range(N):
+        c, v, rows = ops._row_order(coords, values, local_rows, mode)
+        kept = [j for j in range(N) if N < 4 or j != mode]
+        assert torch.equal(c, coords[order][:, kept])
+        assert torch.equal(v, values[order])
+        assert torch.equal(rows, local_rows[order]) and c.is_contiguous()
 
 
 @pytest.mark.parametrize("P,R,K,s", [(4, 7206, 100, 8), (4, 3024, 100, 1),

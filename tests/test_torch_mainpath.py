@@ -208,9 +208,9 @@ def test_gather_two_leads_wrapper_checks():
     ((8, 7, 6, 5, 4), (2, 3, 2, 3, 2))], ids=["N3", "N4", "N5"])
 def test_unsorted_build_takes_elements_in_row_order(shape, core):
     """A Z-build over unsorted rows sorts them stably and takes the
-    coordinates (whole rows at N = 3, column by column from N = 4) and
-    values in that order: the same Z bits, and the same (Z, Z @ X), as
-    sorting by hand."""
+    coordinates (whole rows at N = 3, column by column from N = 4, without
+    the mode's own column) and values in that order: the same Z bits, and
+    the same (Z, Z @ X), as sorting by hand."""
     t = synth_tensor(shape, 900, seed=7)
     coords = torch.as_tensor(t.coords, dtype=torch.int32)
     values = torch.as_tensor(t.values, dtype=torch.float32)
@@ -218,8 +218,10 @@ def test_unsorted_build_takes_elements_in_row_order(shape, core):
          for L, k in zip(shape, core)]
     for mode in range(len(shape)):
         order = torch.argsort(coords[:, mode], stable=True)
-        c, v, rows = ops._row_order(coords, values, coords[:, mode])
-        assert torch.equal(c, coords[order]) and torch.equal(v, values[order])
+        c, v, rows = ops._row_order(coords, values, coords[:, mode], mode)
+        kept = [j for j in range(len(shape)) if len(shape) < 4 or j != mode]
+        assert torch.equal(c, coords[order][:, kept])
+        assert torch.equal(v, values[order])
         assert torch.equal(rows, coords[order, mode]) and c.is_contiguous()
         z = ops.penultimate(coords, values, f, mode, shape[mode])
         want = ops.penultimate_sorted(coords[order], values[order],
